@@ -1,0 +1,130 @@
+"""Carry the JAX package's weights into the port (and back, for comparison).
+
+Inputs and outputs are nested dicts of numpy arrays in the flax layout
+(``{"ConvTranspose2dTorch_0": {"kernel": ...}, "MaskedBatchNorm_0": ...}``),
+so this module needs no JAX.  flax conv kernels are HWIO: a conv maps to
+torch's (out, in, kh, kw), a transposed conv to (in, out, kh, kw)
+(`tests/test_models_parity.py:56-81`).  BatchNorm ``scale``/``bias`` map to
+``weight``/``bias`` and ``batch_stats`` ``mean``/``var`` to
+``running_mean``/``running_var``.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+from .models.dcgan import Generator64
+
+# (torch name, flax collection, flax path, layout)
+Entry = Tuple[str, str, Tuple[str, ...], str]
+
+
+def _dcgan_entries(module: torch.nn.Module) -> Iterator[Entry]:
+    conv = "ConvTranspose2dTorch" if isinstance(module, Generator64) else "Conv2dTorch"
+    layout = "convT" if isinstance(module, Generator64) else "conv"
+    for i in range(len(module.convs)):
+        yield f"convs.{i}.weight", "params", (f"{conv}_{i}", "kernel"), layout
+    for i in range(len(module.bns)):
+        bn = f"MaskedBatchNorm_{i}"
+        yield f"bns.{i}.weight", "params", (bn, "scale"), "vec"
+        yield f"bns.{i}.bias", "params", (bn, "bias"), "vec"
+        yield f"bns.{i}.running_mean", "batch_stats", (bn, "mean"), "vec"
+        yield f"bns.{i}.running_var", "batch_stats", (bn, "var"), "vec"
+
+
+def _to_torch(a: np.ndarray, layout: str) -> np.ndarray:
+    a = np.asarray(a, np.float32)
+    if layout == "conv":
+        return np.transpose(a, (3, 2, 0, 1))
+    if layout == "convT":
+        return np.transpose(a, (2, 3, 0, 1))
+    return a
+
+
+def _to_flax(a: np.ndarray, layout: str) -> np.ndarray:
+    if layout == "conv":
+        return np.transpose(a, (2, 3, 1, 0))
+    if layout == "convT":
+        return np.transpose(a, (2, 3, 0, 1))
+    return a
+
+
+def _get(tree, path):
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+def _put(tree: Dict, path, value) -> None:
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = value
+
+
+def load_dcgan_from_flax(module: torch.nn.Module, params, batch_stats) -> torch.nn.Module:
+    """Copy a flax Generator64/Discriminator64's variables into ``module``."""
+    trees = {"params": params, "batch_stats": batch_stats}
+    sd = module.state_dict()
+    with torch.no_grad():
+        for name, coll, path, layout in _dcgan_entries(module):
+            sd[name].copy_(torch.tensor(_to_torch(_get(trees[coll], path), layout)))
+    return module
+
+
+def dcgan_to_flax(module: torch.nn.Module) -> Dict[str, Dict]:
+    """``{"params": ..., "batch_stats": ...}`` of ``module`` in the flax layout."""
+    out = {"params": {}, "batch_stats": {}}
+    sd = module.state_dict()
+    for name, coll, path, layout in _dcgan_entries(module):
+        _put(out[coll], path, _to_flax(sd[name].detach().cpu().numpy(), layout))
+    return out
+
+
+def adam_moments_to_flax(module: torch.nn.Module, opt: torch.optim.Optimizer
+                         ) -> Tuple[Dict, Dict]:
+    """(mu, nu) of a torch Adam over ``module`` in the layout of optax's
+    ``ScaleByAdamState`` over the flax params."""
+    params = dict(module.named_parameters())
+    mu, nu = {}, {}
+    for name, coll, path, layout in _dcgan_entries(module):
+        if coll != "params":
+            continue
+        st = opt.state[params[name]]
+        _put(mu, path, _to_flax(st["exp_avg"].cpu().numpy(), layout))
+        _put(nu, path, _to_flax(st["exp_avg_sq"].cpu().numpy(), layout))
+    return mu, nu
+
+
+def resnet18_name_map() -> Iterator[Tuple[Tuple[str, ...], str, str]]:
+    """(flax ConvBN path, torchvision conv name, torchvision bn name), as
+    `strainer_gan_tpu/models/resnet.py:144-173` names the trunk."""
+    yield ("_ConvBN_0",), "conv1", "bn1"
+    k = 0
+    in_ch = 64
+    for stage in range(4):
+        width = 64 * 2 ** stage
+        for i in range(2):
+            stride = 2 if (stage > 0 and i == 0) else 1
+            prefix, scope = f"layer{stage + 1}.{i}", f"BasicBlock_{k}"
+            for c in range(2):
+                yield (scope, f"_ConvBN_{c}"), f"{prefix}.conv{c + 1}", f"{prefix}.bn{c + 1}"
+            if i == 0 and (stride != 1 or in_ch != width):
+                yield (scope, "_ConvBN_2"), f"{prefix}.downsample.0", f"{prefix}.downsample.1"
+            in_ch = width
+            k += 1
+
+
+def resnet18_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """torchvision-named state_dict of a flax ResNet18 trunk's variables."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = {}
+    for path, conv, bn in resnet18_name_map():
+        p, s = _get(params, path), _get(stats, path)
+        sd[conv + ".weight"] = _to_torch(p["Conv2dTorch_0"]["kernel"], "conv")
+        sd[bn + ".weight"] = p["MaskedBatchNorm_0"]["scale"]
+        sd[bn + ".bias"] = p["MaskedBatchNorm_0"]["bias"]
+        sd[bn + ".running_mean"] = s["MaskedBatchNorm_0"]["mean"]
+        sd[bn + ".running_var"] = s["MaskedBatchNorm_0"]["var"]
+    return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in sd.items()}

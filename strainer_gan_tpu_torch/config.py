@@ -1,0 +1,173 @@
+"""Typed configuration (counterpart of `strainer_gan_tpu/config.py`).
+
+A copy of the reference's dataclasses, field for field, so a config means
+the same thing in both packages, and of the one preset this port runs so
+far: ``final`` (`strainer_gan_tpu/config.py:523-532`, `# final.py` live
+section).  The other presets come with the slices that run them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class SourceSpec:
+    """One component of a (possibly contaminated) dataset mixture."""
+
+    name: str
+    count: Optional[int] = None
+    fraction_of_primary: Optional[float] = None
+    class_filter: Optional[Tuple[int, ...]] = None
+    class_fraction: Optional[float] = None
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    sources: Tuple[SourceSpec, ...] = (SourceSpec("synthetic_faces"),)
+    image_size: int = 64
+    channels: int = 3
+    batch_size: int = 128
+    mixer: str = "shuffled_combined"
+    flatten: bool = False
+    # torch DataLoader semantics: the CelebA-family loaders keep
+    # drop_last=False (`#%basic.py:76`), one exact partial batch per epoch
+    drop_last: bool = True
+    seed: int = 999
+    auto_batch_divisor: Optional[int] = None
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    arch: str = "dcgan64"
+    nz: int = 100
+    ngf: int = 64
+    ndf: int = 64
+    nc: int = 3
+    img_size: int = 784
+    hidden: Tuple[int, ...] = (256, 512, 1024)
+    g_batchnorm: bool = False
+    d_dropout: float = 0.0
+    # training compute type on the card ("bfloat16" runs the step under
+    # autocast); parameters, BN statistics and scoring stay float32
+    compute_dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class StrainConfig:
+    method: str = "none"
+    feature_extractor: str = "resnet18"
+    z_threshold: Optional[float] = 5.0
+    z_std_mode: str = "torch"  # "torch" (n-1) | "numpy_eps" (n, +1e-7)
+    strict_less: bool = True
+    dbscan_eps: float = 20.0
+    dbscan_min_samples: int = 3
+    loss_ratio: float = 0.2
+    prefilter: bool = False
+    start_epoch: int = 3
+    every_epoch: bool = False
+    reset_each_epoch: bool = False
+    clean_ratio_schedule: Optional[Tuple[Tuple[int, float], ...]] = None
+    # quirk #1 (SURVEY §2.4): `# final.py:443` passes clean_ratio as
+    # loss_ratio, inverting the keep fraction
+    final_py_ratio_inversion: bool = False
+    mask_quantile: float = 0.1
+    mask_start_epoch: int = 10
+    ae_sigma: float = 2.0
+    ae_train_epoch: int = 3
+    ae_train_epochs: int = 5
+    ae_lr: float = 1e-3
+    fake_concat: str = "none"
+    fake_pool_fraction: float = 0.1
+    fake_concat_start_epoch: int = 3
+    in_batch_recycle_quantile: float = 0.1
+    # quirk #4: scoring passes leave D in eval mode (`#clean 분포...py:275`)
+    bn_eval_after_score: bool = False
+    score_batch: int = 512
+    # the port runs "f32" (strain/score.score_d_losses); "band_bf16" is the
+    # reference's default and is not ported yet
+    score_precision: str = "band_bf16"
+    band_eps: float = 0.05
+    band_capacity_frac: float = 0.0625
+    score_unroll: int = 1
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    epochs: int = 5
+    lr_g: float = 2e-4
+    lr_d: float = 2e-4
+    beta1: float = 0.5
+    beta2: float = 0.999
+    adam_defaults: bool = False
+    real_label: float = 1.0
+    fake_label: float = 0.0
+    d_loss_reduction: str = "sum"
+    g_before_d: bool = False
+    lr_decay_epoch: Optional[int] = None
+    lr_decay_factor: float = 0.1
+    seed: int = 999
+    log_every: int = 50
+    sample_every: int = 500
+    fixed_noise_n: int = 64
+    sample_train_bn: bool = True
+    check_finite: bool = False
+    steps_per_dispatch: int = 32
+    scan_unroll: int = 1
+    defer_epoch_stats: bool = True
+
+
+@dataclass(frozen=True)
+class EvalConfig:
+    fid: bool = False
+    fid_every_epochs: Optional[int] = None
+    fid_n_samples: int = 1000
+    fid_normalize_activations: bool = False
+    feature_distance: bool = False
+    wasserstein: bool = False
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    dp: int = 1
+    mesh_axis_name: str = "dp"
+
+
+@dataclass(frozen=True)
+class ExperimentConfig:
+    name: str = "basic"
+    data: DataConfig = field(default_factory=DataConfig)
+    model: ModelConfig = field(default_factory=ModelConfig)
+    strain: StrainConfig = field(default_factory=StrainConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    eval: EvalConfig = field(default_factory=EvalConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
+
+    def replace(self, **kw) -> "ExperimentConfig":
+        return dataclasses.replace(self, **kw)
+
+
+PRESETS: Dict[str, ExperimentConfig] = {
+    "final": ExperimentConfig(
+        name="final",  # `# final.py` live section — flagship pipeline
+        data=DataConfig(
+            sources=(SourceSpec("celeba"), SourceSpec("cifar10")),
+            mixer="shuffled_combined", drop_last=False,
+        ),
+        train=TrainConfig(epochs=10, lr_d=1e-4, lr_g=2e-4, lr_decay_epoch=3),
+        strain=StrainConfig(
+            method="loss_percentile", prefilter=True, z_threshold=5.0,
+            start_epoch=3, every_epoch=True,
+            clean_ratio_schedule=((0, 1.0), (3, 0.8), (5, 0.6), (7, 0.5)),
+            final_py_ratio_inversion=True, bn_eval_after_score=True,
+        ),
+    ),
+}
+
+
+def get_preset(name: str) -> ExperimentConfig:
+    if name not in PRESETS:
+        raise KeyError(f"unknown preset {name!r}; available: {sorted(PRESETS)}")
+    return PRESETS[name]

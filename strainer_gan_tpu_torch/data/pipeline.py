@@ -1,0 +1,60 @@
+"""Device-resident input pipeline (counterpart of
+`strainer_gan_tpu/data/pipeline.py`).
+
+The whole mixture lives on the device as uint8 NHWC; each step gathers its
+batch by index and normalises it there.  Strained subsets are never
+materialised: the strainer keeps a boolean ``active`` mask over the full
+dataset, and the epoch sampler puts the active samples first.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..device import resolve_device
+from .mixers import Mixture
+
+
+def normalize_u8(batch_u8: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """uint8 NHWC [0,255] -> NCHW ``dtype`` [-1,1]; ToTensor+Normalize(0.5,0.5)
+    (`#%basic.py:73`), with the reference's float32 arithmetic."""
+    x = batch_u8.to(torch.float32) * (2.0 / 255.0) - 1.0
+    return x.permute(0, 3, 1, 2).contiguous().to(dtype)
+
+
+def epoch_batch_indices(active: torch.Tensor, num: int, batch_size: int,
+                        perm: Optional[torch.Tensor] = None,
+                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """(num, batch_size) sample indices for one epoch
+    (`strainer_gan_tpu/data/pipeline.py:32-78`).
+
+    A random permutation of all N indices is stably partitioned active-first,
+    and position ``p`` takes the ``p % n_active``-th shuffled active sample:
+    the first ``n_active`` positions cover every active sample once, and the
+    positions past it wrap around — the zero-weight padding lanes of the
+    drop_last=False partial tail batch.  The permutation comes from ``perm``
+    when the caller injects one (parity tests hand both packages the same
+    order), else from ``generator``.
+    """
+    n = active.shape[0]
+    if perm is None:
+        perm = torch.randperm(n, generator=generator, device=active.device)
+    inactive = torch.logical_not(active[perm]).to(torch.uint8)
+    order = perm[torch.argsort(inactive, stable=True)]
+    n_active = torch.clamp(active.sum(), min=1)
+    pos = torch.arange(num * batch_size, device=active.device) % n_active
+    return order[pos].reshape(num, batch_size)
+
+
+class DeviceDataset:
+    """uint8 images + source ids resident on ``device`` (default: the card)."""
+
+    def __init__(self, mixture: Mixture, device=None):
+        self.device = resolve_device(device)
+        self.images = torch.from_numpy(mixture.images).to(self.device)
+        self.source_id = torch.from_numpy(mixture.source_id).to(self.device)
+        self.n = mixture.images.shape[0]
+
+    def gather(self, idx: torch.Tensor) -> torch.Tensor:
+        return self.images.index_select(0, idx)

@@ -1,0 +1,67 @@
+"""Shared layers (counterpart of `strainer_gan_tpu/models/layers.py`).
+
+Convolutions are ``nn.Conv2d`` / ``nn.ConvTranspose2d`` as the reference
+scripts use them (`#%basic.py:106-182`).  ``MaskedBatchNorm2d`` is
+``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1, biased batch variance to
+normalise, unbiased variance for the running update) extended with
+per-sample weights, which ``nn.BatchNorm2d`` does not take: zero-weight
+lanes (the padding of a partial tail batch) influence neither the batch
+statistics nor the running ones (`layers.py:318-391`).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+
+class MaskedBatchNorm2d(nn.Module):
+    def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, sample_weights: Optional[torch.Tensor] = None,
+                train: Optional[bool] = None) -> torch.Tensor:
+        if train is None:
+            train = self.training
+        if not train:
+            mean, var = self.running_mean, self.running_var
+        else:
+            xf = x.to(torch.float32)
+            if sample_weights is None:
+                n = float(x.numel() // x.shape[1])
+                denom = max(n - 1.0, 1.0)
+                var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+            else:
+                w = sample_weights.to(torch.float32).view(-1, 1, 1, 1)
+                n = torch.clamp(w.sum() * (x.shape[2] * x.shape[3]), min=1.0)
+                denom = torch.clamp(n - 1.0, min=1.0)
+                mean = (xf * w).sum(dim=(0, 2, 3)) / n
+                var = (w * (xf - mean.view(1, -1, 1, 1)) ** 2).sum(dim=(0, 2, 3)) / n
+            with torch.no_grad():
+                m = self.momentum
+                unbiased = var.detach() * n / denom
+                self.running_mean.copy_((1 - m) * self.running_mean + m * mean.detach())
+                self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
+        # one multiply-add per element, per-channel coefficients in float32
+        a = self.weight * torch.rsqrt(var + self.eps)
+        b = self.bias - mean * a
+        return x * a.to(x.dtype).view(1, -1, 1, 1) + b.to(x.dtype).view(1, -1, 1, 1)
+
+
+def init_dcgan_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """``weights_init`` (`#%basic.py:93-99`): conv weights ~ N(0, 0.02),
+    BN scale ~ N(1, 0.02), BN bias 0; drawn from ``generator`` on the CPU."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=generator) * 0.02)
+            elif isinstance(m, MaskedBatchNorm2d):
+                m.weight.copy_(1.0 + torch.randn(m.weight.shape, generator=generator) * 0.02)
+                m.bias.zero_()

@@ -1,0 +1,50 @@
+"""Console logging and loss histories (counterpart of
+`strainer_gan_tpu/obs/metrics.py`).
+
+Keeps the reference's console formats: ``[e/E][i/I]\\tLoss_D: ...`` every
+``log_every`` iterations (`#%basic.py:291-294`) and the strain report
+``Epoch N: Removed K outliers.`` (`#z_score.py:321`).  Loss histories stay
+device tensors until first read, so collecting them never waits for the
+card; only a console print reads scalars back.
+"""
+from __future__ import annotations
+
+import sys
+from typing import Dict, List
+
+import torch
+
+
+class MetricsLogger:
+    def __init__(self, log_every: int = 50, stream=None):
+        self.log_every = log_every
+        self.stream = stream or sys.stdout
+        self._g_parts: List[torch.Tensor] = []
+        self._d_parts: List[torch.Tensor] = []
+
+    @property
+    def G_losses(self) -> List[float]:
+        return torch.stack(self._g_parts).tolist() if self._g_parts else []
+
+    @property
+    def D_losses(self) -> List[float]:
+        return torch.stack(self._d_parts).tolist() if self._d_parts else []
+
+    def log_step(self, epoch: int, num_epochs: int, it: int, steps: int,
+                 metrics: Dict[str, torch.Tensor]) -> None:
+        self._g_parts.append(metrics["errG"])
+        self._d_parts.append(metrics["errD"])
+        if self.log_every and it % self.log_every == 0:
+            vals = torch.stack([metrics[k].to(torch.float32) for k in
+                                ("errD", "errG", "D_x", "D_G_z1", "D_G_z2")]).tolist()
+            self.stream.write(
+                "[%d/%d][%d/%d]\tLoss_D: %.4f\tLoss_G: %.4f\t"
+                "D(x): %.4f\tD(G(z)): %.4f / %.4f\n"
+                % (epoch, num_epochs, it, steps, *vals)
+            )
+
+    def log_strain(self, epoch: int, removed: int, remaining: int) -> None:
+        self.stream.write(
+            f"Epoch {epoch}: Removed {removed} outliers. "
+            f"{remaining} samples remaining.\n"
+        )

@@ -1,0 +1,115 @@
+"""Strainer orchestration for the ``final`` path (counterpart of
+`strainer_gan_tpu/strain/engine.py`).
+
+``prefilter`` runs the z-score strain once before training
+(`# final.py:414-427`) and makes its mask the permanent base;
+``on_epoch_start`` runs the ``loss_percentile`` refinement from
+``start_epoch`` on (`# final.py:440-448`): per-sample D losses over the
+base subset, then the percentile mask within the base.  The strain state
+is boolean masks over the full device-resident dataset.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from ..config import ExperimentConfig
+from ..data.pipeline import DeviceDataset
+from ..train.schedules import clean_ratio_at
+from . import score as SC
+from . import thresholds as TH
+
+
+class StrainerEngine:
+    """Holds the strain state (base mask, active mask) across epochs."""
+
+    def __init__(self, cfg: ExperimentConfig, disc: torch.nn.Module,
+                 dataset: DeviceDataset,
+                 feature_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                 score_batch: int = 512):
+        sc = cfg.strain
+        if sc.method != "loss_percentile":
+            raise ValueError(f"strain method {sc.method!r} is not ported yet")
+        if sc.score_precision != "f32":
+            raise ValueError("only score_precision='f32' is ported; the band_bf16 "
+                             "scoring path gives the same mask and comes later")
+        if sc.fake_concat != "none":
+            raise ValueError("fake_concat is not ported yet")
+        self.cfg = cfg
+        self.sc = sc
+        self.disc = disc
+        self.dataset = dataset
+        self.feature_fn = feature_fn
+        self.score_batch = score_batch
+        n = dataset.n
+        dev = dataset.device
+        self.base_active = torch.ones((n,), dtype=torch.bool, device=dev)
+        self.active = self.base_active
+        self.d_bn_eval = False  # quirk: eval mode sticks after scoring
+        self.last_threshold = None
+        self.last_scores = None  # max-|z| or per-sample losses of the last strain
+        self._base_subset = None  # int64 indices of base_active, when it shrank
+
+    def _set_base(self, mask: torch.Tensor) -> None:
+        """Record a new permanent base and its compacted index list (one host
+        fetch per strain event), so loss scoring skips the dropped samples."""
+        self.base_active = mask
+        idx = torch.nonzero(mask).flatten()
+        self._base_subset = idx if idx.shape[0] < self.dataset.n else None
+
+    def _losses(self) -> torch.Tensor:
+        subset = self._base_subset
+        losses = SC.score_d_losses(self.disc, self.dataset,
+                                   real_label=self.cfg.train.real_label,
+                                   batch_size=self.score_batch, subset=subset)
+        if subset is not None:
+            # scatter back to full size; dropped lanes +inf sort last
+            full = torch.full((self.dataset.n,), float("inf"), dtype=torch.float32,
+                              device=losses.device)
+            full[subset] = losses
+            losses = full
+        if self.sc.bn_eval_after_score:
+            self.d_bn_eval = True  # SURVEY §2.4 item 4
+        self.last_scores = losses
+        return losses
+
+    def prefilter(self) -> torch.Tensor:
+        """Once-before-training z-score strain (`# final.py:414-427`).
+
+        max-|z| is computed once (K2) and serves both the mask and
+        ``last_scores``; the reference computes it twice
+        (`engine.py:148-171`)."""
+        sc = self.sc
+        if not sc.prefilter:
+            return self.active
+        if self.feature_fn is None:
+            raise ValueError("the prefilter needs a feature extractor")
+        feats = SC.score_features(self.feature_fn, self.dataset, self.score_batch)
+        scores = TH.masked_max_abs_z(feats, None, sc.z_std_mode)
+        mask, thr = TH.zscore_threshold_mask(scores, sc.z_threshold, sc.strict_less)
+        self.last_threshold = thr
+        self.last_scores = scores
+        self._set_base(mask)
+        self.active = mask
+        return self.active
+
+    def on_epoch_start(self, epoch: int) -> torch.Tensor:
+        sc = self.sc
+        if epoch < sc.start_epoch:
+            return self.active
+        if sc.final_py_ratio_inversion:
+            # quirk #1 (`# final.py:443`): clean_ratio passed AS loss_ratio
+            loss_ratio = clean_ratio_at(epoch, sc.clean_ratio_schedule)
+        else:
+            loss_ratio = sc.loss_ratio
+        losses = self._losses()
+        mask, thr = TH.percentile_refine_mask(losses, loss_ratio, valid=self.base_active)
+        self.last_threshold = thr
+        self.active = mask
+        return self.active
+
+    def on_epoch_end(self, epoch: int) -> torch.Tensor:
+        if self.sc.reset_each_epoch:
+            self.active = self.base_active
+        return self.active

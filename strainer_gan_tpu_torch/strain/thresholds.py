@@ -1,0 +1,87 @@
+"""Threshold selectors -> boolean keep-masks (counterpart of
+`strainer_gan_tpu/strain/thresholds.py`), the ones the ``final`` path runs.
+
+Every function maps scores over the FULL dataset (plus an optional
+``valid`` mask restricting the statistics to the active subset) to a keep
+mask; entries outside ``valid`` always come back False.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ..kernels import zscore as KZ
+
+
+def _and_valid(mask: torch.Tensor, valid: Optional[torch.Tensor]) -> torch.Tensor:
+    return mask if valid is None else torch.logical_and(mask, valid)
+
+
+def _masked_max_abs_z(features: torch.Tensor, valid: Optional[torch.Tensor],
+                      std_mode: str) -> torch.Tensor:
+    """Plain version of K2 (`thresholds.py:25-48`): max-|z| per row with the
+    statistics over the valid rows only, z = 0 on zero-std columns."""
+    mean, std = KZ.column_stats_plain(features, valid, std_mode)
+    return KZ.row_max_abs_z_plain(features, mean, std)
+
+
+def masked_max_abs_z(features: torch.Tensor, valid: Optional[torch.Tensor],
+                     std_mode: str) -> torch.Tensor:
+    """The same statistic through the K2 kernels (plain on the CPU)."""
+    return KZ.masked_max_abs_z(features, valid, std_mode)
+
+
+def zscore_threshold_mask(max_z: torch.Tensor, threshold: float, strict: bool = True,
+                          valid: Optional[torch.Tensor] = None):
+    """Keep ``max_z < thr`` (or ``<=``) on precomputed max-|z| scores."""
+    thr = torch.tensor(threshold, dtype=torch.float32, device=max_z.device)
+    mask = max_z < thr if strict else max_z <= thr
+    return _and_valid(mask, valid), thr
+
+
+def zscore_fixed_mask(features: torch.Tensor, threshold: float, std_mode: str = "torch",
+                      strict: bool = True, valid: Optional[torch.Tensor] = None):
+    """`detect_outliers` with a fixed threshold (`#z_score.py:276-294`)."""
+    return zscore_threshold_mask(masked_max_abs_z(features, valid, std_mode),
+                                 threshold, strict, valid)
+
+
+def percentile_refine_mask(losses: torch.Tensor, loss_ratio: float,
+                           valid: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`refine_dataset_by_loss` (`# final.py:343-374`; `thresholds.py:121-163`).
+
+    thr = percentile(losses of valid, (1 - loss_ratio) * 100); keep loss < thr;
+    if nothing is kept, keep the bottom half by rank (>= 1 sample).  One
+    stable argsort (as ``jnp.argsort``) serves the percentile and the
+    fallback ranks; invalid lanes sort last at +float32 max; the
+    interpolation position is computed in float32 as the reference does.
+    """
+    dev = losses.device
+    ratio = torch.tensor(loss_ratio, dtype=torch.float32, device=dev)
+    q = (1.0 - ratio) * 100.0
+    if valid is None:
+        valid = torch.ones(losses.shape, dtype=torch.bool, device=dev)
+    n = losses.shape[0]
+    big = torch.tensor(torch.finfo(torch.float32).max, dtype=torch.float32, device=dev)
+    masked = torch.where(valid, losses, big)
+    order = torch.argsort(masked, stable=True)
+    xs = masked[order]
+    n_valid = valid.sum()
+    pos = q / 100.0 * torch.clamp_min(n_valid - 1, 0)
+    lo = torch.floor(pos).to(torch.int64)
+    hi = torch.ceil(pos).to(torch.int64)
+    frac = pos - lo
+    x_lo = xs[torch.clamp(lo, 0, n - 1)]
+    x_hi = xs[torch.clamp(hi, 0, n - 1)]
+    thr = x_lo + (x_hi - x_lo) * frac
+    mask = torch.logical_and(losses < thr, valid)
+
+    n_kept = mask.sum()
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(n, device=dev)
+    half = torch.clamp_min(n_valid // 2, 1)
+    fallback = torch.logical_and(rank < half, valid)
+    mask = torch.where(n_kept == 0, fallback, mask)
+    return mask, thr

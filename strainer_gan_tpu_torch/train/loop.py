@@ -1,0 +1,123 @@
+"""The epoch driver (counterpart of `strainer_gan_tpu/train/loop.py`), the
+blocking path.
+
+``Trainer`` turns a config into a run: builds the mixture, stages it on
+the device, builds G/D and their Adam optimizers, wires the strainer, and
+drives the reference's per-epoch schedule (`# final.py:414-448`):
+prefilter -> [lr cut] -> [re-strain] -> batch loop.  One host fetch per
+strain event (active count and strain accounting) fixes the step count;
+the console prints every ``log_every`` steps are the other host reads.
+
+``kernel_launches`` holds how often each CUDA kernel wrapper launched
+during ``run()``.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..config import ExperimentConfig
+from ..data import DeviceDataset, build_mixture, epoch_batch_indices, normalize_u8
+from ..device import resolve_device
+from ..kernels import launch_counts
+from ..models import build_models
+from ..models.features import build_feature_fn
+from ..obs.metrics import MetricsLogger
+from ..strain.engine import StrainerEngine
+from .schedules import lr_at
+from .state import make_optimizers
+from .steps import step_config_from, train_step
+
+
+class Trainer:
+    def __init__(self, cfg: ExperimentConfig, device=None, max_synth: Optional[int] = None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.dataset = DeviceDataset(build_mixture(cfg.data, max_synth=max_synth), self.device)
+        gen, disc = build_models(cfg.model, seed=cfg.train.seed)
+        self.gen, self.disc = gen.to(self.device), disc.to(self.device)
+        self.opt_g, self.opt_d = make_optimizers(cfg, self.gen, self.disc)
+        feature_fn = None
+        if cfg.strain.prefilter:
+            feature_fn = build_feature_fn(cfg.strain.feature_extractor, cfg.model.nc,
+                                          self.device)
+        self.engine = StrainerEngine(cfg, self.disc, self.dataset, feature_fn=feature_fn,
+                                     score_batch=cfg.strain.score_batch)
+        self.scfg = step_config_from(cfg)
+        self.logger = MetricsLogger(log_every=cfg.train.log_every)
+        # one explicit generator for the epoch permutations and the noise
+        self.rng = torch.Generator(device=self.device).manual_seed(cfg.train.seed)
+        self.mask_history: List[np.ndarray] = []
+        self.strain_quality: List[Dict] = []
+        self.kernel_launches: Dict[str, int] = {}
+        self._stats = None  # (n_active, true-positive removals, n_contaminants)
+
+    def setup(self) -> None:
+        """Pre-training strain (the z-score prefilter)."""
+        if self.cfg.strain.prefilter:
+            self.engine.prefilter()
+
+    def _fetch_epoch_stats(self, active: torch.Tensor):
+        contam = self.dataset.source_id != 0
+        dropped = torch.logical_not(active)
+        self._stats = tuple(int(v) for v in torch.stack([
+            active.sum(), torch.logical_and(dropped, contam).sum(), contam.sum(),
+        ]).tolist())
+        return self._stats
+
+    def run_epoch(self, epoch: int) -> Dict:
+        cfg, t = self.cfg, self.cfg.train
+        t0 = time.perf_counter()
+        prev_active = self.engine.active
+        active = self.engine.on_epoch_start(epoch)
+        if self._stats is None or active is not prev_active:
+            n_active, strain_tp, n_contam = self._fetch_epoch_stats(active)
+            if active is not prev_active:
+                removed = self.dataset.n - n_active
+                self.logger.log_strain(epoch, removed, n_active)
+                if removed and n_contam:
+                    self.strain_quality.append(dict(
+                        epoch=epoch, removed=removed, precision=strain_tp / removed,
+                        recall=strain_tp / n_contam))
+        n_active = self._stats[0]
+        self.mask_history.append(active.cpu().numpy())  # waits for the strain
+        strain_seconds = time.perf_counter() - t0
+
+        lr_g = lr_at(t.lr_g, epoch, t)
+        lr_d = lr_at(t.lr_d, epoch, t)
+        bs = cfg.data.batch_size
+        if cfg.data.drop_last:
+            steps, tail = n_active // bs, 0
+        else:
+            # exact partial final batch (`#%basic.py:76`): the last step runs
+            # with ``tail`` valid lanes
+            steps, tail = -(-n_active // bs), n_active % bs
+        idx = epoch_batch_indices(active, steps, bs, generator=self.rng)
+        d_train = not self.engine.d_bn_eval
+        metrics = None
+        for i in range(steps):
+            ids = idx[i]
+            x = normalize_u8(self.dataset.gather(ids), torch.float32)
+            z = torch.randn((bs, cfg.model.nz), generator=self.rng, device=self.device)
+            metrics = train_step(
+                self.gen, self.disc, self.opt_g, self.opt_d, x,
+                self.dataset.source_id[ids], z, lr_g, lr_d, self.scfg, d_train=d_train,
+                lane_count=tail if (tail and i == steps - 1) else None,
+            )
+            self.logger.log_step(epoch, t.epochs, i, steps, metrics)
+        self.engine.on_epoch_end(epoch)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return dict(steps=steps, active=n_active, lr_g=lr_g, lr_d=lr_d, last=metrics,
+                    seconds=time.perf_counter() - t0, strain_seconds=strain_seconds)
+
+    def run(self, epochs: Optional[int] = None) -> List[Dict]:
+        before = launch_counts()
+        self.setup()
+        out = [self.run_epoch(e) for e in range(epochs or self.cfg.train.epochs)]
+        after = launch_counts()
+        self.kernel_launches = {k: after[k] - before[k] for k in after}
+        return out
