@@ -6,21 +6,38 @@ Phases, one line of output or more each; any failure raises and the
 script exits non-zero without printing its result line:
 
 1. build: compile ``strainer_gan_tpu_torch/csrc/*.cu`` with ``nvcc`` for
-   ``sm_90a`` (seconds), and read the card's name and power limit.
-2. kernels: every CUDA kernel of the port at the shapes the ``final`` path
-   gives it, held against its plain PyTorch version on the same inputs,
-   and timed with CUDA events beside its plain version (and, where one
-   PyTorch call computes the same function, that call).
+   ``sm_90a`` (one process per source, all started together), and read the
+   card's name and power limit.
+2. kernels: every CUDA kernel of the port at the shapes its path gives it,
+   held against its plain PyTorch version on the same inputs, and timed
+   with CUDA events beside its plain version (and, where one PyTorch call
+   computes the same function, that call).  K1 and K2 at the ``final``
+   path's shapes; K3 (DBSCAN neighbour counts) on 40,000 x 512 clustered
+   features, held to a float64 sandwich, and timed at 40,000 and at
+   222,599 rows (the real ``zscore_dbscan`` mixture).
 3. slice: the port's ``Trainer`` runs the ``final`` preset at full model
    width (nz=100, ngf=ndf=64, 64x64x3), batch 128, for 4 epochs: z-score
    prefilter on ResNet18 features, D-first steps, the loss-percentile
-   strain at epoch 3 with its LR cut.  Launch counters are zeroed right
-   before ``run()`` and read right after it.
+   strain at epoch 3 with its LR cut.
+4. zscore_dbscan: the ``zscore_dbscan`` preset at full width, batch 128, on
+   its full synthetic mixture (40,000 images): the DBSCAN-calibrated
+   z-score prefilter (K2, then K3 twice), then training.
+5. zscore_elbow and zscore: each preset up to its strain event.
 
-Deviations from the preset, each for a reason: ``score_precision="f32"``
-(the band_bf16 scoring path is not ported yet; it gives the same mask),
-``epochs=4`` (epoch 3 is the first strain event), ``max_synth=8192`` per
-source (16,384 images, 128 steps per epoch, to bound the run's time).
+Launch counters are zeroed right before each ``run()`` (or ``setup()``)
+and read right after it.
+
+Deviations from the presets, each for a reason:
+- ``final``: ``score_precision="f32"`` (the band_bf16 scoring path is not
+  ported yet; it gives the same mask), ``epochs=4`` (epoch 3 is the first
+  strain event), ``max_synth=8192`` per source (16,384 images, 128 steps
+  per epoch, to bound the run's time).
+- ``zscore_dbscan``: ``epochs=2`` (the prefilter is the preset's only
+  strain event; further epochs repeat the same step).
+- ``zscore_elbow``: ``max_synth=2048`` per source and only the prefilter
+  (its only strain event).
+- ``zscore``: ``max_synth=2048`` per source and epochs 0-3 (its one strain
+  is at epoch 3).
 
 The second-to-last lines are one JSON object of per-kernel results and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -39,6 +56,7 @@ HERE = Path(__file__).resolve().parent
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, published
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, published
+H100_3XTF32_FLOPS = 494.7e12 / 3  # float32 products as three TF32 products, published TF32
 
 
 def check(cond: bool, msg: str) -> None:
@@ -169,6 +187,110 @@ def kernel_phase(torch, port):
     return results
 
 
+def k3_phase(torch):
+    """K3 against a float64 sandwich at 40,000 rows; timed at 40,000 and at
+    222,599 rows (CelebA's 202,599 + 20,000 CIFAR, the real mixture)."""
+    from strainer_gan_tpu_torch.device import f32_math
+    from strainer_gan_tpu_torch.kernels import pairwise as KP
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    d, delta = 512, 1e-4
+
+    def clustered(n):
+        # 160-point clusters (spread 0.5 per feature, so within-cluster
+        # distances are about 16) plus 20% spread noise rows (about 128 away)
+        centers = torch.randn((n // 160 + 1, d), generator=g, device=dev) * 4.0
+        x = centers[torch.randint(0, centers.shape[0], (n,), generator=g, device=dev)]
+        x = x + torch.randn((n, d), generator=g, device=dev) * 0.5
+        noise = torch.rand(n, generator=g, device=dev) < 0.2
+        x[noise] = torch.randn((int(noise.sum()), d), generator=g, device=dev) * 4.0
+        valid = torch.rand(n, generator=g, device=dev) > 0.1
+        return x.contiguous(), valid
+
+    n = 40_000
+    x, valid = clustered(n)
+    eps = 16.0  # the typical within-cluster distance: many pairs near eps
+    x64 = x.double()
+    lo_eps, hi_eps = eps * (1 - delta) ** 0.5, eps * (1 + delta) ** 0.5
+    n_band = n_clear = 0
+    err = 0.0
+    ratios = []
+    for v in (valid, None):
+        got = KP.neighbor_counts(x, eps, v)
+        lo = KP.neighbor_counts_plain(x64, lo_eps, v)
+        hi = KP.neighbor_counts_plain(x64, hi_eps, v)
+        torch.cuda.synchronize()
+        check(bool((lo <= got).all()) and bool((got <= hi).all()),
+              "K3 counts outside the float64 sandwich")
+        clear = lo == hi
+        exact = KP.neighbor_counts_plain(x64, eps, v)
+        check(torch.equal(got[clear], exact[clear]),
+              "K3 counts differ from float64 on rows with no pair in the band")
+        err = max(err, float((got - exact).abs().max()))
+        n_band += int((~clear).sum())
+        n_clear += int(clear.sum())
+        mask = KP.dbscan_non_noise(x, eps, 3, v)
+        m_lo = KP.dbscan_non_noise_plain(x64, lo_eps, 3, v)
+        m_hi = KP.dbscan_non_noise_plain(x64, hi_eps, 3, v)
+        check(not bool((m_lo & ~mask).any()) and not bool((mask & ~m_hi).any()),
+              "K3 non-noise mask outside the float64 sandwich")
+        denom = float(v.sum()) if v is not None else float(n)
+        r, r_lo, r_hi = (float(m.sum()) / denom for m in (mask, m_lo, m_hi))
+        check(r_lo <= r <= r_hi and 0.05 < r < 0.95, f"K3 ratio {r} vs [{r_lo}, {r_hi}]")
+        ratios.append((r, r_lo, r_hi))
+        if v is not None:
+            check(not bool(got[~v].any()), "K3 counted an invalid row")
+    phase("kernels", f"K3 neighbor_counts {n}x{d} eps={eps}: float64 sandwich at "
+          f"eps^2 (1 -/+ {delta}) holds for counts and non-noise masks, with and without "
+          f"valid; counts exact on {n_clear} rows with no pair in the band "
+          f"({n_band} band rows, max |count - float64 count| {err:g}); non-noise ratio "
+          f"(masked, unmasked) "
+          + ", ".join(f"{r:.6f} in [{a:.6f}, {b:.6f}]" for r, a, b in ratios))
+
+    def times(n, x, valid, iters, warmup):
+        t_k = time_ms(torch, lambda: KP.dbscan_non_noise(x, eps, 3, valid), iters, warmup)
+        t_p = time_ms(torch, lambda: KP.dbscan_non_noise_plain(x, eps, 3, valid), iters, warmup)
+
+        def blocked_mm():
+            with f32_math():
+                for lo in range(0, n, KP.PLAIN_BLOCK):
+                    torch.mm(x[lo:lo + KP.PLAIN_BLOCK], x.T)
+        t_mm = 2 * time_ms(torch, blocked_mm, iters, warmup)  # two passes
+        # The least work of the function: d^2 is symmetric, so the Gram of
+        # the N(N+1)/2 pairs once (2D flops a pair); pass 2 only reweights
+        # pass 1's adjacency, kept as a bitmask (written once, read once).
+        flops = n * (n + 1.0) * d
+        mask_bytes = 2 * (n * (n + 1.0) / 2 / 8)
+        io_bytes = 4.0 * n * d + n + n  # features, valid in, non-noise out
+        b, by = max((flops / H100_3XTF32_FLOPS * 1e3, "operations"),
+                    ((io_bytes + mask_bytes) / H100_BYTES_PER_S * 1e3, "bytes"))
+        full = 2 * 2.0 * n * n * d  # what the kernel does: two passes over all N^2 pairs
+        phase("kernels", f"K3 dbscan_non_noise N={n}: kernel_ms={t_k:.3f} (2 launches) "
+              f"plain_ms={t_p:.3f} bound_ms={b:.3f} (by {by}: symmetric half once at 3xTF32 "
+              f"164.9 TFLOP/s plus a bitmask of {mask_bytes / 2e9:.3f} GB; "
+              f"{flops / H100_F32_FLOPS * 1e3:.3f} at the f32 CUDA-core 67 TFLOP/s; "
+              f"two full passes as the kernel does them: "
+              f"{full / H100_3XTF32_FLOPS * 1e3:.3f} at 3xTF32, "
+              f"{full / H100_F32_FLOPS * 1e3:.3f} on the f32 CUDA cores) "
+              f"library_ms=null; f32 torch.mm of the same products (TF32 off, 2 passes "
+              f"of {KP.PLAIN_BLOCK}-row blocks): {t_mm:.3f} ms")
+        return t_k, t_p, b, by
+
+    t_k, t_p, b, by = times(n, x, valid, iters=5, warmup=1)
+    del x64
+    n_big = 222_599
+    xb, vb = clustered(n_big)
+    big = times(n_big, xb, vb, iters=1, warmup=0)
+    del xb, vb
+    torch.cuda.empty_cache()
+    return dict(name="neighbor_counts", route="cuda",
+                source="strainer_gan_tpu_torch/csrc/pairwise.cu",
+                replaces="strainer_gan_tpu/kernels/pairwise.py:25", max_abs_err=err,
+                ms=t_k, plain_ms=t_p, bound_ms=b, bound_by=by, library_ms=None,
+                ms_222599=big[0], plain_ms_222599=big[1], bound_ms_222599=big[2])
+
+
 def slice_phase(torch, np):
     from strainer_gan_tpu_torch import get_preset, kernels
     from strainer_gan_tpu_torch.train.loop import Trainer
@@ -236,6 +358,125 @@ def slice_phase(torch, np):
     return launches
 
 
+def zscore_dbscan_phase(torch, np):
+    """The zscore_dbscan preset at full width on its full synthetic mixture."""
+    from strainer_gan_tpu_torch import get_preset, kernels
+    from strainer_gan_tpu_torch.kernels import pairwise as KP
+    from strainer_gan_tpu_torch.ops import dbscan as DB
+    from strainer_gan_tpu_torch.strain import score as SC, thresholds as TH
+    from strainer_gan_tpu_torch.train.loop import Trainer
+
+    cfg = get_preset("zscore_dbscan")
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, batch_size=128),
+                      train=dataclasses.replace(cfg.train, epochs=2))
+    t0 = time.perf_counter()
+    tr = Trainer(cfg)
+    torch.cuda.synchronize()
+    n = tr.dataset.n
+    mb = tr.dataset.images.numel() / 1e6
+    phase("zscore_dbscan", f"{n} images ({mb:.0f} MB uint8) staged on the card, G/D at "
+          f"nz={cfg.model.nz} ngf={cfg.model.ngf} ndf={cfg.model.ndf}, "
+          f"eps={cfg.strain.dbscan_eps} min_samples={cfg.strain.dbscan_min_samples} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = tr.run()
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    check(launches["neighbor_counts"] == 2, f"K3 launched {launches['neighbor_counts']} "
+          "times on the zscore_dbscan path, not 2")
+    check(launches["zscore_column_stats"] >= 1 and launches["zscore_row_max"] >= 1,
+          "K2 not launched on the zscore_dbscan path")
+
+    eng = tr.engine
+    ratio = float(eng.last_clean_ratio)
+    mz = eng.last_scores
+    thr = eng.last_threshold
+    base = eng.base_active
+    kept = int(base.sum())
+    check(0 < kept <= n, f"prefilter kept {kept} of {n}")
+    check(torch.equal(base, mz <= thr), "the prefilter mask is not max|z| <= threshold")
+    thr_np = float(np.quantile(mz.double().cpu().numpy(), ratio))
+    check(abs(float(thr) - thr_np) <= 1e-6 * abs(thr_np),
+          f"threshold {float(thr)} vs numpy quantile {thr_np}")
+    # the clean ratio inside the float64 sandwich on the same standardised features
+    xs = DB.standardize(eng._features).double()
+    eps, ms = cfg.strain.dbscan_eps, cfg.strain.dbscan_min_samples
+    k_lo = int(KP.dbscan_non_noise_plain(xs, eps * (1 - 1e-4) ** 0.5, ms).sum())
+    k_hi = int(KP.dbscan_non_noise_plain(xs, eps * (1 + 1e-4) ** 0.5, ms).sum())
+    k = round(ratio * n)  # the ratio is k times float32(1/n)
+    r_lo, r_hi = k_lo / n, k_hi / n
+    check(k_lo <= k <= k_hi, f"clean ratio {ratio} ({k} non-noise) outside [{r_lo}, {r_hi}]")
+    del xs
+    losses = tr.logger.D_losses + tr.logger.G_losses
+    check(len(losses) == 2 * sum(o["steps"] for o in out) and np.all(np.isfinite(losses)),
+          "non-finite or missing losses")
+
+    setup_s = total - sum(o["seconds"] for o in out)
+    # the prefilter's pieces again, each timed alone on the cached features
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t
+    _, t_feat = timed(lambda: SC.score_features(tr.engine.feature_fn, tr.dataset,
+                                                cfg.strain.score_batch))
+    mz2, t_k2 = timed(lambda: TH.masked_max_abs_z(eng._features, None, cfg.strain.z_std_mode))
+    r2, t_k3 = timed(lambda: DB.dbscan_clean_ratio(eng._features, eps, ms))
+    _, t_q = timed(lambda: TH.zscore_quantile_mask(mz2, r2))
+    quality = "".join(f"; removed {q['removed']} with precision {q['precision']:.4f} "
+                      f"recall {q['recall']:.4f} against the contamination labels"
+                      for q in tr.strain_quality)
+    phase("zscore_dbscan", f"prefilter: DBSCAN clean ratio {ratio:.6f} (float64 sandwich "
+          f"[{r_lo:.6f}, {r_hi:.6f}]), threshold {float(thr):.6g} (numpy {thr_np:.6g}), "
+          f"kept {kept}/{n}{quality}")
+    phase("zscore_dbscan", f"prefilter {setup_s:.3f} s in the run; its pieces again alone: "
+          f"features {t_feat:.3f} s, K2 max|z| {t_k2:.4f} s, standardise + K3 x2 + ratio "
+          f"{t_k3:.4f} s, quantile + mask {t_q:.4f} s")
+    for e, o in enumerate(out):
+        train_s = o["seconds"] - o["strain_seconds"]
+        phase("zscore_dbscan", f"epoch {e}: {o['steps']} steps in {train_s:.3f} s, "
+              f"{train_s / max(o['steps'], 1):.5f} s/step")
+    phase("zscore_dbscan", f"kernels {json.dumps(launches)}")
+    return launches
+
+
+def zscore_short_phases(torch, np):
+    """zscore_elbow (its prefilter) and zscore (epochs 0-3) at full width."""
+    from strainer_gan_tpu_torch import get_preset, kernels
+    from strainer_gan_tpu_torch.train.loop import Trainer
+
+    for name, epochs in (("zscore_elbow", 0), ("zscore", 4)):
+        cfg = get_preset(name)
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, batch_size=128))
+        tr = Trainer(cfg, max_synth=2048)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        if epochs:
+            out = tr.run(epochs)
+            check(all(m.all() for m in tr.mask_history[:3]), f"{name}: strained before epoch 3")
+            mask, prev = tr.mask_history[3], tr.mask_history[2]
+            check(all(np.isfinite(tr.logger.D_losses)), f"{name}: non-finite losses")
+        else:
+            tr.setup()
+            mask = tr.engine.active.cpu().numpy()
+            prev = np.ones_like(mask)
+            out = []
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        check(launches["zscore_column_stats"] >= 1 and launches["zscore_row_max"] >= 1,
+              f"K2 not launched on the {name} path")
+        check(0 < mask.sum() and not mask[~prev].any(), f"{name}: mask empty or outside its base")
+        steps = sum(o["steps"] for o in out)
+        phase(name, f"{tr.dataset.n} images: strain kept {int(mask.sum())}/{int(prev.sum())} "
+              f"at threshold {float(tr.engine.last_threshold):.6g}; {len(out)} epochs, "
+              f"{steps} steps, {seconds:.2f} s in all; kernels {json.dumps(launches)}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -264,9 +505,13 @@ def main() -> int:
             print("  ptxas: " + line.strip())
 
     results = kernel_phase(torch, port)
+    k3 = k3_phase(torch)
     launches = slice_phase(torch, np)
     for r in results:
         r["launches"] = launches[r["name"]]
+    k3["launches"] = zscore_dbscan_phase(torch, np)["neighbor_counts"]
+    results.append(k3)
+    zscore_short_phases(torch, np)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}))

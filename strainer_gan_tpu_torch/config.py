@@ -1,9 +1,11 @@
 """Typed configuration (counterpart of `strainer_gan_tpu/config.py`).
 
 A copy of the reference's dataclasses, field for field, so a config means
-the same thing in both packages, and of the one preset this port runs so
-far: ``final`` (`strainer_gan_tpu/config.py:523-532`, `# final.py` live
-section).  The other presets come with the slices that run them.
+the same thing in both packages, and of the presets this port runs so far:
+``final`` (`strainer_gan_tpu/config.py:523-532`, `# final.py` live
+section) and the feature-space z-score family ``zscore``, ``zscore_elbow``
+and ``zscore_dbscan`` (`config.py:411-430`).  The other presets come with
+the slices that run them.
 """
 from __future__ import annotations
 
@@ -149,13 +151,38 @@ class ExperimentConfig:
         return dataclasses.replace(self, **kw)
 
 
+_CELEBA_CIFAR20K = DataConfig(
+    sources=(SourceSpec("celeba"), SourceSpec("cifar10", count=20000)),
+    mixer="shuffled_combined", drop_last=False,
+)
+_CELEBA_CIFAR_FULL = DataConfig(
+    sources=(SourceSpec("celeba"), SourceSpec("cifar10")),
+    mixer="shuffled_combined", drop_last=False,
+)
+
 PRESETS: Dict[str, ExperimentConfig] = {
+    "zscore": ExperimentConfig(
+        name="zscore",  # `#z_score.py` — fixed z>5, applied once at epoch 3
+        data=_CELEBA_CIFAR20K,
+        train=TrainConfig(epochs=10),
+        strain=StrainConfig(method="zscore_fixed", z_threshold=5.0,
+                            start_epoch=3, every_epoch=False),
+    ),
+    "zscore_elbow": ExperimentConfig(
+        name="zscore_elbow",  # `#z_score + 엘보우 threshold.py` — prefilter, auto thr
+        data=_CELEBA_CIFAR_FULL,
+        train=TrainConfig(epochs=10),
+        strain=StrainConfig(method="zscore_elbow", z_threshold=None, prefilter=True),
+    ),
+    "zscore_dbscan": ExperimentConfig(
+        name="zscore_dbscan",  # `# z_score + DBSCAN.py` — DBSCAN-calibrated quantile
+        data=_CELEBA_CIFAR20K,
+        train=TrainConfig(epochs=10),
+        strain=StrainConfig(method="zscore_dbscan", prefilter=True, strict_less=False),
+    ),
     "final": ExperimentConfig(
         name="final",  # `# final.py` live section — flagship pipeline
-        data=DataConfig(
-            sources=(SourceSpec("celeba"), SourceSpec("cifar10")),
-            mixer="shuffled_combined", drop_last=False,
-        ),
+        data=_CELEBA_CIFAR_FULL,
         train=TrainConfig(epochs=10, lr_d=1e-4, lr_g=2e-4, lr_decay_epoch=3),
         strain=StrainConfig(
             method="loss_percentile", prefilter=True, z_threshold=5.0,

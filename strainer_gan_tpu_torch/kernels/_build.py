@@ -24,7 +24,7 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("bce.cu", "zscore.cu")
+SOURCES = ("bce.cu", "pairwise.cu", "zscore.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -121,6 +121,10 @@ def load_library() -> ctypes.CDLL:
         lib.sg_zscore_column_stats.restype = i32
         lib.sg_zscore_row_max.argtypes = [i32, vp, vp, vp, i64, i32, vp, vp]
         lib.sg_zscore_row_max.restype = i32
+        lib.sg_pairwise_feature_step.argtypes = []
+        lib.sg_pairwise_feature_step.restype = i32
+        lib.sg_neighbor_counts.argtypes = [i32, vp, vp, vp, i32, i32, f32, vp, vp]
+        lib.sg_neighbor_counts.restype = i32
         _lib = lib
         return lib
 

@@ -23,6 +23,8 @@ def _std_mode(std_mode: str) -> Tuple[bool, float]:
         return True, 0.0
     if std_mode == "numpy_eps":  # population + 1e-7 (`# 1,2,8.py:166`)
         return False, 1e-7
+    if std_mode == "population":  # StandardScaler (`ops/dbscan.py:164-175`)
+        return False, 0.0
     raise ValueError(f"unknown std_mode {std_mode!r}")
 
 

@@ -5,9 +5,17 @@ it (`#z_score.py:270-274`): 7x7 stem, max-pool, four stages of two
 BasicBlocks, global average pool -> (N, 512).  Parameter names are
 torchvision's, so a torchvision ``state_dict`` or the synthetic one of
 ``models/synth_weights.py`` loads as it is.  The trunk is eval-only.
+
+``load_staged_weights`` copies a staged torchvision ``state_dict`` into the
+trunk entry by entry along ``bridge.resnet18_name_map`` (the classifier
+``fc`` and the BN batch counters are not read), as
+`strainer_gan_tpu/models/resnet.py:160-200` loads it into the flax trunk.
 """
 from __future__ import annotations
 
+from typing import Mapping
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -54,3 +62,19 @@ class ResNet18Features(nn.Module):
         for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
             x = layer(x)
         return x.mean(dim=(2, 3)).to(torch.float32)
+
+
+def load_staged_weights(model: ResNet18Features, state_dict: Mapping) -> ResNet18Features:
+    """Copy the trunk's convolutions and BatchNorms from a torchvision-named
+    ``state_dict`` (tensors or arrays) into ``model``."""
+    from ..bridge import resnet18_name_map
+
+    own = model.state_dict()
+    with torch.no_grad():
+        for _, conv, bn in resnet18_name_map():
+            names = [conv + ".weight"] + [f"{bn}.{k}" for k in
+                                          ("weight", "bias", "running_mean", "running_var")]
+            for name in names:
+                value = np.asarray(state_dict[name], np.float32)
+                own[name].copy_(torch.from_numpy(value).reshape(own[name].shape))
+    return model

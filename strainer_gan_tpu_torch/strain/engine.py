@@ -1,11 +1,18 @@
-"""Strainer orchestration for the ``final`` path (counterpart of
-`strainer_gan_tpu/strain/engine.py`).
+"""Strainer orchestration for the ``final`` path and the feature-space
+z-score strainers (counterpart of `strainer_gan_tpu/strain/engine.py`).
 
-``prefilter`` runs the z-score strain once before training
-(`# final.py:414-427`) and makes its mask the permanent base;
-``on_epoch_start`` runs the ``loss_percentile`` refinement from
-``start_epoch`` on (`# final.py:440-448`): per-sample D losses over the
-base subset, then the percentile mask within the base.  The strain state
+| method          | when                                   | reference flow                  |
+|-----------------|----------------------------------------|---------------------------------|
+| zscore_fixed    | once at ``start_epoch`` (or prefilter) | `#z_score.py:309-321`           |
+| zscore_elbow    | prefilter once                         | `#z_score + 엘보우...:350-359`  |
+| zscore_dbscan   | prefilter once                         | `# z_score + DBSCAN.py:339-358` |
+| loss_percentile | every epoch >= 3, from the prefiltered | `# final.py:440-448`            |
+|                 | base                                   |                                 |
+
+``prefilter`` runs the z-score strain once before training and makes its
+mask the permanent base; ``on_epoch_start`` runs the one-shot z-score
+strain or the ``loss_percentile`` refinement (per-sample D losses over the
+base subset, then the percentile mask within the base).  The strain state
 is boolean masks over the full device-resident dataset.
 """
 from __future__ import annotations
@@ -16,9 +23,13 @@ import torch
 
 from ..config import ExperimentConfig
 from ..data.pipeline import DeviceDataset
+from ..ops import dbscan as DB
 from ..train.schedules import clean_ratio_at
 from . import score as SC
 from . import thresholds as TH
+
+
+ZSCORE_METHODS = ("zscore_fixed", "zscore_elbow", "zscore_dbscan")
 
 
 class StrainerEngine:
@@ -29,9 +40,9 @@ class StrainerEngine:
                  feature_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
                  score_batch: int = 512):
         sc = cfg.strain
-        if sc.method != "loss_percentile":
+        if sc.method not in ("loss_percentile",) + ZSCORE_METHODS:
             raise ValueError(f"strain method {sc.method!r} is not ported yet")
-        if sc.score_precision != "f32":
+        if sc.method == "loss_percentile" and sc.score_precision != "f32":
             raise ValueError("only score_precision='f32' is ported; the band_bf16 "
                              "scoring path gives the same mask and comes later")
         if sc.fake_concat != "none":
@@ -49,7 +60,17 @@ class StrainerEngine:
         self.d_bn_eval = False  # quirk: eval mode sticks after scoring
         self.last_threshold = None
         self.last_scores = None  # max-|z| or per-sample losses of the last strain
+        self.last_clean_ratio = None  # DBSCAN clean ratio of the last zscore_dbscan strain
+        self._features = None  # cached features for the z-score strainers
         self._base_subset = None  # int64 indices of base_active, when it shrank
+
+    def _features_full(self) -> torch.Tensor:
+        if self._features is None:
+            if self.feature_fn is None:
+                raise ValueError(f"strainer {self.sc.method!r} needs a feature extractor")
+            self._features = SC.score_features(self.feature_fn, self.dataset,
+                                               self.score_batch)
+        return self._features
 
     def _set_base(self, mask: torch.Tensor) -> None:
         """Record a new permanent base and its compacted index list (one host
@@ -74,28 +95,51 @@ class StrainerEngine:
         self.last_scores = losses
         return losses
 
-    def prefilter(self) -> torch.Tensor:
-        """Once-before-training z-score strain (`# final.py:414-427`).
-
-        max-|z| is computed once (K2) and serves both the mask and
-        ``last_scores``; the reference computes it twice
-        (`engine.py:148-171`)."""
+    def _zscore_mask(self) -> torch.Tensor:
+        """The z-score strain over the whole dataset, in the reference's arm
+        order (`engine.py:148-171`).  max-|z| is computed once (K2) and
+        serves the mask and ``last_scores``; the reference computes it
+        twice."""
+        feats = self._features_full()
         sc = self.sc
-        if not sc.prefilter:
-            return self.active
-        if self.feature_fn is None:
-            raise ValueError("the prefilter needs a feature extractor")
-        feats = SC.score_features(self.feature_fn, self.dataset, self.score_batch)
         scores = TH.masked_max_abs_z(feats, None, sc.z_std_mode)
-        mask, thr = TH.zscore_threshold_mask(scores, sc.z_threshold, sc.strict_less)
+        if sc.method == "zscore_fixed" or (
+            sc.method == "loss_percentile" and sc.z_threshold is not None
+        ):
+            mask, thr = TH.zscore_threshold_mask(scores, sc.z_threshold, sc.strict_less)
+        elif sc.method == "zscore_elbow" or sc.z_threshold is None:
+            mask, thr = TH.zscore_elbow_mask(scores)
+        elif sc.method == "zscore_dbscan":
+            ratio = DB.dbscan_clean_ratio(feats, sc.dbscan_eps, sc.dbscan_min_samples)
+            self.last_clean_ratio = ratio
+            mask, thr = TH.zscore_quantile_mask(scores, ratio)
+        else:
+            raise AssertionError(sc.method)
         self.last_threshold = thr
         self.last_scores = scores
+        return mask
+
+    def _strain_base(self) -> torch.Tensor:
+        mask = self._zscore_mask()
         self._set_base(mask)
         self.active = mask
         return self.active
 
+    def prefilter(self) -> torch.Tensor:
+        """Once-before-training z-score strain (`# final.py:414-427`; the
+        elbow and DBSCAN variants)."""
+        if not self.sc.prefilter:
+            return self.active
+        return self._strain_base()
+
     def on_epoch_start(self, epoch: int) -> torch.Tensor:
         sc = self.sc
+        if sc.method in ZSCORE_METHODS:
+            if sc.prefilter or sc.every_epoch:
+                return self.active
+            if epoch == sc.start_epoch:  # `#z_score.py:309-321`: once, at 3
+                return self._strain_base()
+            return self.active
         if epoch < sc.start_epoch:
             return self.active
         if sc.final_py_ratio_inversion:

@@ -1,5 +1,6 @@
 """Threshold selectors -> boolean keep-masks (counterpart of
-`strainer_gan_tpu/strain/thresholds.py`), the ones the ``final`` path runs.
+`strainer_gan_tpu/strain/thresholds.py`), the ones the ``final`` path and
+the z-score strainers run.
 
 Every function maps scores over the FULL dataset (plus an optional
 ``valid`` mask restricting the statistics to the active subset) to a keep
@@ -12,6 +13,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..kernels import zscore as KZ
+from ..ops import stats as S
 
 
 def _and_valid(mask: torch.Tensor, valid: Optional[torch.Tensor]) -> torch.Tensor:
@@ -47,6 +49,32 @@ def zscore_fixed_mask(features: torch.Tensor, threshold: float, std_mode: str = 
                                  threshold, strict, valid)
 
 
+def zscore_elbow_mask(max_z: torch.Tensor, valid: Optional[torch.Tensor] = None):
+    """Keep ``max_z < thr`` with the histogram-elbow threshold
+    (`thresholds.py:63-78`, `#z_score + 엘보우 threshold.py:268-331`); with
+    ``valid``, invalid lanes enter the histogram at the valid maximum.
+    Takes the max-|z| scores, which the engine computes once through K2
+    (the JAX function takes the features and computes them itself)."""
+    if valid is None:
+        thr, _, _ = S.elbow_threshold(max_z)
+    else:
+        big = torch.max(torch.where(valid, max_z, torch.full_like(max_z, float("-inf"))))
+        thr, _, _ = S.elbow_threshold(torch.where(valid, max_z, big))
+    return _and_valid(max_z < thr, valid), thr
+
+
+def zscore_quantile_mask(max_z: torch.Tensor, clean_ratio,
+                         valid: Optional[torch.Tensor] = None):
+    """Keep ``max_z <= quantile(max_z, clean_ratio)``, inclusive
+    (`thresholds.py:81-93`, `# z_score + DBSCAN.py:305-326`); on max-|z|
+    scores, as ``zscore_elbow_mask``."""
+    if valid is None:
+        thr = S.quantile(max_z, clean_ratio)
+    else:
+        thr = S.masked_quantile(max_z, valid, clean_ratio)
+    return _and_valid(max_z <= thr, valid), thr
+
+
 def percentile_refine_mask(losses: torch.Tensor, loss_ratio: float,
                            valid: Optional[torch.Tensor] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -67,15 +95,8 @@ def percentile_refine_mask(losses: torch.Tensor, loss_ratio: float,
     big = torch.tensor(torch.finfo(torch.float32).max, dtype=torch.float32, device=dev)
     masked = torch.where(valid, losses, big)
     order = torch.argsort(masked, stable=True)
-    xs = masked[order]
     n_valid = valid.sum()
-    pos = q / 100.0 * torch.clamp_min(n_valid - 1, 0)
-    lo = torch.floor(pos).to(torch.int64)
-    hi = torch.ceil(pos).to(torch.int64)
-    frac = pos - lo
-    x_lo = xs[torch.clamp(lo, 0, n - 1)]
-    x_hi = xs[torch.clamp(hi, 0, n - 1)]
-    thr = x_lo + (x_hi - x_lo) * frac
+    thr = S.interpolate_sorted(masked[order], n_valid, q)
     mask = torch.logical_and(losses < thr, valid)
 
     n_kept = mask.sum()

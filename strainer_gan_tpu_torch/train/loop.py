@@ -41,9 +41,9 @@ class Trainer:
         self.gen, self.disc = gen.to(self.device), disc.to(self.device)
         self.opt_g, self.opt_d = make_optimizers(cfg, self.gen, self.disc)
         feature_fn = None
-        if cfg.strain.prefilter:
-            feature_fn = build_feature_fn(cfg.strain.feature_extractor, cfg.model.nc,
-                                          self.device)
+        s = cfg.strain
+        if s.method.startswith("zscore") or (s.method == "loss_percentile" and s.prefilter):
+            feature_fn = build_feature_fn(s.feature_extractor, cfg.model.nc, self.device)
         self.engine = StrainerEngine(cfg, self.disc, self.dataset, feature_fn=feature_fn,
                                      score_batch=cfg.strain.score_batch)
         self.scfg = step_config_from(cfg)
@@ -56,9 +56,10 @@ class Trainer:
         self._stats = None  # (n_active, true-positive removals, n_contaminants)
 
     def setup(self) -> None:
-        """Pre-training strain (the z-score prefilter)."""
-        if self.cfg.strain.prefilter:
-            self.engine.prefilter()
+        """Pre-training strain (the z-score prefilter), logged as epoch 0's."""
+        s = self.cfg.strain
+        if s.prefilter and s.method != "none":
+            self._log_strain(0, self.engine.prefilter())
 
     def _fetch_epoch_stats(self, active: torch.Tensor):
         contam = self.dataset.source_id != 0
@@ -68,20 +69,26 @@ class Trainer:
         ]).tolist())
         return self._stats
 
+    def _log_strain(self, epoch: int, active: torch.Tensor) -> None:
+        """One host fetch: the console line and the strain's precision and
+        recall against the contamination labels."""
+        n_active, strain_tp, n_contam = self._fetch_epoch_stats(active)
+        removed = self.dataset.n - n_active
+        self.logger.log_strain(epoch, removed, n_active)
+        if removed and n_contam:
+            self.strain_quality.append(dict(
+                epoch=epoch, removed=removed, precision=strain_tp / removed,
+                recall=strain_tp / n_contam))
+
     def run_epoch(self, epoch: int) -> Dict:
         cfg, t = self.cfg, self.cfg.train
         t0 = time.perf_counter()
         prev_active = self.engine.active
         active = self.engine.on_epoch_start(epoch)
-        if self._stats is None or active is not prev_active:
-            n_active, strain_tp, n_contam = self._fetch_epoch_stats(active)
-            if active is not prev_active:
-                removed = self.dataset.n - n_active
-                self.logger.log_strain(epoch, removed, n_active)
-                if removed and n_contam:
-                    self.strain_quality.append(dict(
-                        epoch=epoch, removed=removed, precision=strain_tp / removed,
-                        recall=strain_tp / n_contam))
+        if active is not prev_active:
+            self._log_strain(epoch, active)
+        elif self._stats is None:
+            self._fetch_epoch_stats(active)
         n_active = self._stats[0]
         self.mask_history.append(active.cpu().numpy())  # waits for the strain
         strain_seconds = time.perf_counter() - t0

@@ -10,7 +10,10 @@ does not need.)
 
 Without a GPU every test here skips (the kernels have no CPU mode).
 Tolerances are ``chip_smoke.py``'s: K1 |diff| <= 2e-6 max(1, |ref|), K2
-|diff| <= 1e-5 max(1, |ref|).
+|diff| <= 1e-5 max(1, |ref|).  K3 decides ``d2 <= eps^2`` exactly, so it is
+held to a sandwich: the float64 plain version at eps^2 (1 - 1e-4) gives a
+lower bound of its counts and mask and at eps^2 (1 + 1e-4) an upper one,
+and where the two agree the kernel's counts equal the float64 counts.
 """
 import numpy as np
 import pytest
@@ -18,6 +21,7 @@ import torch
 
 from strainer_gan_tpu_torch import kernels as K
 from strainer_gan_tpu_torch.kernels import bce as KB
+from strainer_gan_tpu_torch.kernels import pairwise as KP
 from strainer_gan_tpu_torch.kernels import zscore as KZ
 from strainer_gan_tpu_torch.strain import thresholds as TH
 
@@ -59,4 +63,57 @@ def test_zscore_kernels_match_plain(cuda_device, std_mode):
         ref = TH._masked_max_abs_z(f, v, std_mode)
         got = KZ.masked_max_abs_z(f, v, std_mode)
         assert torch.all((got - ref).abs() <= 1e-5 * ref.abs().clamp_min(1.0))
-    assert set(K.launch_counts()) == {"bce_scores", "zscore_column_stats", "zscore_row_max"}
+    assert set(K.launch_counts()) == {"bce_scores", "zscore_column_stats", "zscore_row_max",
+                                      "neighbor_counts"}
+
+
+def _clustered(rng, n, d):
+    """Tight clusters plus spread noise, float32."""
+    centers = rng.standard_normal((24, d)) * 4.0
+    x = centers[rng.integers(0, 24, n)] + rng.standard_normal((n, d)) * 0.5
+    noise = rng.choice(n, n // 5, replace=False)
+    x[noise] = rng.standard_normal((noise.size, d)) * 4.0
+    return x.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [512, 100])  # 100: the feature padding path
+@pytest.mark.parametrize("masked", [False, True])
+def test_neighbor_counts_kernel_sandwich(cuda_device, d, masked):
+    delta = 1e-4
+    rng = np.random.default_rng(3)
+    n = 3001  # not a multiple of the 128-row tile
+    x = torch.from_numpy(_clustered(rng, n, d)).to(cuda_device)
+    valid = torch.from_numpy(rng.uniform(size=n) > 0.1).to(cuda_device) if masked else None
+    # eps: the 1st percentile of the pairwise distances of a sample of rows,
+    # which falls among the within-cluster distances
+    s = x[:500].double()
+    eps = float(torch.quantile(torch.cdist(s, s)[torch.triu_indices(500, 500, 1).unbind()],
+                               0.01))
+    x64 = x.double()
+    lo_eps, hi_eps = eps * (1 - delta) ** 0.5, eps * (1 + delta) ** 0.5
+    before = KP.neighbor_counts.launches
+    got = KP.neighbor_counts(x, eps, valid)
+    lo = KP.neighbor_counts_plain(x64, lo_eps, valid)
+    hi = KP.neighbor_counts_plain(x64, hi_eps, valid)
+    assert bool((lo <= got).all()) and bool((got <= hi).all())
+    clear = lo == hi
+    assert torch.equal(got[clear], KP.neighbor_counts_plain(x64, eps, valid)[clear])
+    # the second pass's weights: the kernel's own core points on both sides
+    core = got >= 3
+    got_w = KP.neighbor_counts(x, eps, valid, col_weights=core)
+    lo_w = KP.neighbor_counts_plain(x64, lo_eps, valid, col_weights=core)
+    hi_w = KP.neighbor_counts_plain(x64, hi_eps, valid, col_weights=core)
+    assert bool((lo_w <= got_w).all()) and bool((got_w <= hi_w).all())
+    clear = lo_w == hi_w
+    assert torch.equal(got_w[clear],
+                       KP.neighbor_counts_plain(x64, eps, valid, col_weights=core)[clear])
+    if valid is not None:
+        assert not bool(got[~valid].any())
+    # DBSCAN's non-noise mask inside the sandwich, not all noise or all core
+    mask = KP.dbscan_non_noise(x, eps, 3, valid)
+    m_lo = KP.dbscan_non_noise_plain(x64, lo_eps, 3, valid)
+    m_hi = KP.dbscan_non_noise_plain(x64, hi_eps, 3, valid)
+    assert not bool((m_lo & ~mask).any()) and not bool((mask & ~m_hi).any())
+    assert 0.05 < float(mask.float().mean()) < 0.95
+    assert KP.neighbor_counts.launches == before + 4

@@ -17,6 +17,7 @@ from strainer_gan_tpu.strain import thresholds as JTH
 
 from strainer_gan_tpu_torch import kernels as K
 from strainer_gan_tpu_torch.kernels import bce as KB
+from strainer_gan_tpu_torch.kernels import pairwise as KP
 from strainer_gan_tpu_torch.kernels import zscore as KZ
 from strainer_gan_tpu_torch.strain import thresholds as TTH
 
@@ -96,4 +97,9 @@ def test_wrappers_check_their_inputs():
         KZ.column_stats(f, torch.ones(3, dtype=torch.bool))
     with pytest.raises(ValueError):
         KZ.row_max_abs_z(f, torch.zeros(2), torch.ones(3))
-    assert set(K.launch_counts()) == {"bce_scores", "zscore_column_stats", "zscore_row_max"}
+    with pytest.raises(ValueError):
+        KP.neighbor_counts(f, 1.0, torch.ones(3, dtype=torch.bool))
+    with pytest.raises(TypeError):
+        KP.neighbor_counts(f, 1.0, None, torch.ones(4))  # weights must be bool
+    assert set(K.launch_counts()) == {"bce_scores", "zscore_column_stats", "zscore_row_max",
+                                      "neighbor_counts"}

@@ -189,7 +189,7 @@ def test_trainer_cpu_four_epochs(capsys):
     assert all(np.isfinite(x) for x in tr.logger.D_losses + tr.logger.G_losses)
     # CPU tensors take the plain versions: no kernel launched
     assert tr.kernel_launches == {"bce_scores": 0, "zscore_column_stats": 0,
-                                  "zscore_row_max": 0}
+                                  "zscore_row_max": 0, "neighbor_counts": 0}
 
 
 def test_entry_points_refuse_a_missing_card(monkeypatch):
