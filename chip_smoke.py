@@ -13,7 +13,9 @@ script exits non-zero without printing its result line:
    with CUDA events beside its plain version (and, where one PyTorch call
    computes the same function, that call).  K1 and K2 at the ``final``
    path's shapes; K3 (DBSCAN neighbour counts) on 40,000 x 512 clustered
-   features, held to a float64 sandwich, and timed at 40,000 and at
+   features, held to a float64 sandwich, its 3xTF32 d^2 error on sampled
+   pairs held to its error band, the pairs it redecided in the band and
+   its adjacency bitmask's size printed, and timed at 40,000 and at
    222,599 rows (the real ``zscore_dbscan`` mixture).
 3. slice: the port's ``Trainer`` runs the ``final`` preset at full model
    width (nz=100, ngf=ndf=64, 64x64x3), batch 128, for 4 epochs: z-score
@@ -57,6 +59,7 @@ HERE = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12  # HBM3, published
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, published
 H100_3XTF32_FLOPS = 494.7e12 / 3  # float32 products as three TF32 products, published TF32
+PR5_KEPT = 21_275  # zscore_dbscan prefilter kept, with the direct-form K3 on the same data
 
 
 def check(cond: bool, msg: str) -> None:
@@ -216,8 +219,10 @@ def k3_phase(torch):
     n_band = n_clear = 0
     err = 0.0
     ratios = []
+    redecided = []
     for v in (valid, None):
         got = KP.neighbor_counts(x, eps, v)
+        redecided.append(KP.last_band_pairs)
         lo = KP.neighbor_counts_plain(x64, lo_eps, v)
         hi = KP.neighbor_counts_plain(x64, hi_eps, v)
         torch.cuda.synchronize()
@@ -247,6 +252,28 @@ def k3_phase(torch):
           f"({n_band} band rows, max |count - float64 count| {err:g}); non-noise ratio "
           f"(masked, unmasked) "
           + ", ".join(f"{r:.6f} in [{a:.6f}, {b:.6f}]" for r, a, b in ratios))
+    # the 3xTF32 Gram's error on a sample of pairs (row tile 0 against the
+    # first 8 column tiles), against float64, beside the band's half-width
+    tile, n_tiles = KP.TILE, 8
+    ones = torch.ones((n,), dtype=torch.bool, device=dev)
+    _, _, d2 = KP._counts_cuda(x, eps, None, ones, want_adjacency=False,
+                               sample_tiles=n_tiles)
+    sq64 = (x64 * x64).sum(1)
+    worst = 0.0
+    for j in range(n_tiles):
+        cols = slice(j * tile, (j + 1) * tile)
+        s2 = sq64[:tile, None] + sq64[None, cols]
+        exact = s2 - 2.0 * x64[:tile] @ x64[cols].T
+        worst = max(worst, float(((d2[j].double() - exact).abs() / s2).max()))
+    tau = KP.band_tau_coef(-(-d // KP.FEATURE_STEP) * KP.FEATURE_STEP)
+    check(worst <= tau, f"K3's 3xTF32 d^2 error {worst:.3g} (sq_i + sq_j) exceeds its "
+          f"band {tau:.3g}")
+    t1 = -(-n // tile)
+    mask_bytes = t1 * (t1 + 1) // 2 * KP.TILE_WORDS * 4
+    phase("kernels", f"K3 pass 1 redecided {redecided[0]} (masked) / {redecided[1]} "
+          f"(unmasked) band pairs by the direct form; max |d2_3xTF32 - d2_f64| / "
+          f"(sq_i + sq_j) over {n_tiles * tile * tile} sampled pairs {worst:.4g} against "
+          f"tau {tau:.4g}; adjacency bitmask {mask_bytes} bytes")
 
     def times(n, x, valid, iters, warmup):
         t_k = time_ms(torch, lambda: KP.dbscan_non_noise(x, eps, 3, valid), iters, warmup)
@@ -265,14 +292,11 @@ def k3_phase(torch):
         io_bytes = 4.0 * n * d + n + n  # features, valid in, non-noise out
         b, by = max((flops / H100_3XTF32_FLOPS * 1e3, "operations"),
                     ((io_bytes + mask_bytes) / H100_BYTES_PER_S * 1e3, "bytes"))
-        full = 2 * 2.0 * n * n * d  # what the kernel does: two passes over all N^2 pairs
-        phase("kernels", f"K3 dbscan_non_noise N={n}: kernel_ms={t_k:.3f} (2 launches) "
-              f"plain_ms={t_p:.3f} bound_ms={b:.3f} (by {by}: symmetric half once at 3xTF32 "
-              f"164.9 TFLOP/s plus a bitmask of {mask_bytes / 2e9:.3f} GB; "
-              f"{flops / H100_F32_FLOPS * 1e3:.3f} at the f32 CUDA-core 67 TFLOP/s; "
-              f"two full passes as the kernel does them: "
-              f"{full / H100_3XTF32_FLOPS * 1e3:.3f} at 3xTF32, "
-              f"{full / H100_F32_FLOPS * 1e3:.3f} on the f32 CUDA cores) "
+        phase("kernels", f"K3 dbscan_non_noise N={n}: kernel_ms={t_k:.3f} (2 launches; "
+              f"{KP.last_band_pairs} band pairs redecided) plain_ms={t_p:.3f} "
+              f"bound_ms={b:.3f} (by {by}: symmetric half once at 3xTF32 164.9 TFLOP/s "
+              f"plus a bitmask of {mask_bytes / 2e9:.3f} GB; "
+              f"{flops / H100_F32_FLOPS * 1e3:.3f} at the f32 CUDA-core 67 TFLOP/s) "
               f"library_ms=null; f32 torch.mm of the same products (TF32 off, 2 passes "
               f"of {KP.PLAIN_BLOCK}-row blocks): {t_mm:.3f} ms")
         return t_k, t_p, b, by
@@ -431,8 +455,9 @@ def zscore_dbscan_phase(torch, np):
                       f"recall {q['recall']:.4f} against the contamination labels"
                       for q in tr.strain_quality)
     phase("zscore_dbscan", f"prefilter: DBSCAN clean ratio {ratio:.6f} (float64 sandwich "
-          f"[{r_lo:.6f}, {r_hi:.6f}]), threshold {float(thr):.6g} (numpy {thr_np:.6g}), "
-          f"kept {kept}/{n}{quality}")
+          f"[{r_lo:.6f}, {r_hi:.6f}]; K3 redecided {KP.last_band_pairs} band pairs), "
+          f"threshold {float(thr):.6g} (numpy {thr_np:.6g}), kept {kept}/{n} "
+          f"({kept - PR5_KEPT:+d} against the {PR5_KEPT} the direct-form K3 kept){quality}")
     phase("zscore_dbscan", f"prefilter {setup_s:.3f} s in the run; its pieces again alone: "
           f"features {t_feat:.3f} s, K2 max|z| {t_k2:.4f} s, standardise + K3 x2 + ratio "
           f"{t_k3:.4f} s, quantile + mask {t_q:.4f} s")

@@ -114,17 +114,22 @@ def load_library() -> ctypes.CDLL:
         i32, i64, f32, vp = ctypes.c_int, ctypes.c_int64, ctypes.c_float, ctypes.c_void_p
         lib.sg_bce_scores.argtypes = [i32, vp, vp, i64, f32, vp]
         lib.sg_bce_scores.restype = i32
-        lib.sg_zscore_chunk_rows.argtypes = []
-        lib.sg_zscore_chunk_rows.restype = i32
-        lib.sg_zscore_column_stats.argtypes = [i32, vp, vp, i64, i32, i32, f32,
-                                               vp, vp, vp, vp, vp]
+        lib.sg_zscore_stats_chunks.argtypes = [i32, i64, i32]
+        lib.sg_zscore_stats_chunks.restype = i64
+        lib.sg_zscore_column_stats.argtypes = [i32, vp, vp, i64, i32, i32, f32, i64,
+                                               vp, vp, vp, vp, vp, vp]
         lib.sg_zscore_column_stats.restype = i32
         lib.sg_zscore_row_max.argtypes = [i32, vp, vp, vp, i64, i32, vp, vp]
         lib.sg_zscore_row_max.restype = i32
         lib.sg_pairwise_feature_step.argtypes = []
         lib.sg_pairwise_feature_step.restype = i32
-        lib.sg_neighbor_counts.argtypes = [i32, vp, vp, vp, i32, i32, f32, vp, vp]
-        lib.sg_neighbor_counts.restype = i32
+        lib.sg_pairwise_tile.argtypes = []
+        lib.sg_pairwise_tile.restype = i32
+        lib.sg_pairwise_counts.argtypes = [i32, vp, i32, i32, i32, vp, vp, vp, vp, vp, f32,
+                                           f32, vp, vp, vp, vp, i32, vp, i32, vp]
+        lib.sg_pairwise_counts.restype = i32
+        lib.sg_dbscan_near_core.argtypes = [i32, vp, vp, i32, vp, vp]
+        lib.sg_dbscan_near_core.restype = i32
         _lib = lib
         return lib
 

@@ -10,6 +10,7 @@ only for CPU tensors; ``.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -23,7 +24,7 @@ def _std_mode(std_mode: str) -> Tuple[bool, float]:
         return True, 0.0
     if std_mode == "numpy_eps":  # population + 1e-7 (`# 1,2,8.py:166`)
         return False, 1e-7
-    if std_mode == "population":  # StandardScaler (`ops/dbscan.py:164-175`)
+    if std_mode == "population":  # StandardScaler (`ops/dbscan.py:25-36`)
         return False, 0.0
     raise ValueError(f"unknown std_mode {std_mode!r}")
 
@@ -57,6 +58,12 @@ def row_max_abs_z_plain(features: torch.Tensor, mean: torch.Tensor,
     return torch.amax(z, dim=1)
 
 
+@functools.lru_cache(maxsize=64)
+def _stats_chunks(device: int, n: int, d: int) -> int:
+    """Row chunks of K2a's column pass (about two waves of its blocks)."""
+    return _build.load_library().sg_zscore_stats_chunks(device, n, d)
+
+
 def column_stats(features: torch.Tensor, valid: Optional[torch.Tensor] = None,
                  std_mode: str = "torch") -> Tuple[torch.Tensor, torch.Tensor]:
     """K2a: (N, D) float32 [+ (N,) bool valid] -> (mean (D,), std (D,))."""
@@ -67,19 +74,18 @@ def column_stats(features: torch.Tensor, valid: Optional[torch.Tensor] = None,
         return column_stats_plain(features, valid, std_mode)
     lib = _build.load_library()
     n, d = features.shape
-    chunk_rows = lib.sg_zscore_chunk_rows()
-    chunks = -(-n // chunk_rows)
     dev = features.device
-    partial = torch.empty((chunks, d), dtype=torch.float32, device=dev)
-    partial_cnt = torch.empty((chunks,), dtype=torch.float32, device=dev)
-    mean = torch.empty((d,), dtype=torch.float32, device=dev)
-    std = torch.empty((d,), dtype=torch.float32, device=dev)
+    chunks = _stats_chunks(dev.index or 0, n, d)
+    # scratch: (chunks, d) partial means, then M2s, then (chunks,) int32 counts
+    scratch = torch.empty((2 * chunks * d + chunks,), dtype=torch.float32, device=dev)
+    out = torch.empty((2, d), dtype=torch.float32, device=dev)
+    mean, std = out[0], out[1]
     stream = torch.cuda.current_stream(dev).cuda_stream
+    p = scratch.data_ptr()
     rc = lib.sg_zscore_column_stats(
         dev.index or 0, features.data_ptr(),
-        None if valid is None else valid.data_ptr(), n, d, int(bessel), eps,
-        partial.data_ptr(), partial_cnt.data_ptr(), mean.data_ptr(), std.data_ptr(),
-        stream,
+        None if valid is None else valid.data_ptr(), n, d, int(bessel), eps, chunks,
+        p, p + 4 * chunks * d, p + 8 * chunks * d, mean.data_ptr(), std.data_ptr(), stream,
     )
     _build.check(rc, "zscore_column_stats")
     column_stats.launches += 1

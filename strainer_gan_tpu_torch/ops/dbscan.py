@@ -19,7 +19,7 @@ from ..kernels import zscore as KZ
 
 
 def standardize(features: torch.Tensor, valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``StandardScaler`` over the valid rows (`ops/dbscan.py:164-175`):
+    """``StandardScaler`` over the valid rows (`ops/dbscan.py:25-36`):
     population std, a zero std replaced by 1.  The column statistics come
     from K2a; the divide is plain, as in the JAX package."""
     mean, std = KZ.column_stats(features, valid, "population")
@@ -29,12 +29,12 @@ def standardize(features: torch.Tensor, valid: Optional[torch.Tensor] = None) ->
 
 def dbscan_clean_ratio(features: torch.Tensor, eps: float = 20.0, min_samples: int = 3,
                        valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """`estimate_ratio_dbscan` (`ops/dbscan.py:259-272`,
+    """`estimate_ratio_dbscan` (`ops/dbscan.py:120-133`,
     `# z_score + DBSCAN.py:295-300`): the float32 fraction of the (valid)
     points that are non-noise after standardisation, a device scalar.
     Unmasked it is ``jnp.mean``, which XLA computes as the sum times the
     float32 reciprocal of N; masked, sum / max(sum(valid), 1).  Non-noise
-    (`ops/dbscan.py:186-212`) is K3's two passes for CUDA tensors."""
+    (`ops/dbscan.py:47`) is K3's two passes for CUDA tensors."""
     non_noise = KP.dbscan_non_noise(standardize(features, valid), eps, min_samples, valid)
     kept = non_noise.sum().to(torch.float32)
     if valid is None:

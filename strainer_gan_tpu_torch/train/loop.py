@@ -56,10 +56,13 @@ class Trainer:
         self._stats = None  # (n_active, true-positive removals, n_contaminants)
 
     def setup(self) -> None:
-        """Pre-training strain (the z-score prefilter), logged as epoch 0's."""
+        """Pre-training strain (the z-score prefilter).  Not logged as a
+        strain event, as in the JAX package (`strainer_gan_tpu/train/loop.py:271-277`):
+        epoch 0 finds the prefilter's mask already active, so ``run_epoch``
+        only fetches its count."""
         s = self.cfg.strain
         if s.prefilter and s.method != "none":
-            self._log_strain(0, self.engine.prefilter())
+            self.engine.prefilter()
 
     def _fetch_epoch_stats(self, active: torch.Tensor):
         contam = self.dataset.source_id != 0

@@ -117,3 +117,70 @@ def test_neighbor_counts_kernel_sandwich(cuda_device, d, masked):
     assert not bool((m_lo & ~mask).any()) and not bool((mask & ~m_hi).any())
     assert 0.05 < float(mask.float().mean()) < 0.95
     assert KP.neighbor_counts.launches == before + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(1, 512), (70_001, 512), (3000, 100), (2049, 30)])
+@pytest.mark.parametrize("std_mode", ["torch", "numpy_eps", "population"])
+def test_column_stats_shapes(cuda_device, n, d, std_mode):
+    # one-row, ragged-chunk, float4 and scalar (d % 4 != 0) column passes;
+    # masks with some and with no valid rows
+    g = torch.Generator(device=cuda_device).manual_seed(n + d)
+    f = torch.randn((n, d), generator=g, device=cuda_device) * 3.0 - 1.0
+    f[:, 0] = -2.5  # zero std
+    for v in (None, torch.rand(n, generator=g, device=cuda_device) > 0.3,
+              torch.zeros(n, dtype=torch.bool, device=cuda_device)):
+        mean, std = KZ.column_stats(f, v, std_mode)
+        mean_p, std_p = KZ.column_stats_plain(f, v, std_mode)
+        for got, ref in ((mean, mean_p), (std, std_p)):
+            assert torch.all((got - ref).abs() <= 1e-5 * ref.abs().clamp_min(1.0))
+        assert float(std[0]) == float(std_p[0])
+        # the same on every run: a fixed merge order and no atomics
+        again = KZ.column_stats(f, v, std_mode)
+        assert torch.equal(again[0], mean) and torch.equal(again[1], std)
+
+
+@pytest.mark.cuda
+def test_neighbor_counts_error_within_band(cuda_device):
+    # the 3xTF32 d2 of sampled tiles against float64, within the derived tau
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(_clustered(rng, 1000, 512) + 3.0).to(cuda_device)
+    counts, _, d2 = KP._counts_cuda(x, 16.0, None, torch.ones(1000, dtype=torch.bool,
+                                                                 device=cuda_device),
+                                    want_adjacency=False, sample_tiles=3)
+    x64 = x.double()
+    sq = (x64 * x64).sum(1)
+    dp = 512
+    for idx, (i, j) in enumerate([(0, 0), (0, 1), (0, 2)]):
+        a, b = x64[i * 128:(i + 1) * 128], x64[j * 128:(j + 1) * 128]
+        exact = torch.cdist(a, b) ** 2
+        s = sq[i * 128:(i + 1) * 128, None] + sq[None, j * 128:(j + 1) * 128]
+        ratio = float(((d2[idx].double() - exact).abs() / s).max())
+        assert ratio <= KP.band_tau_coef(dp), (ratio, KP.band_tau_coef(dp))
+    assert torch.equal(counts.float(), KP.neighbor_counts(x, 16.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 127, 129, 4000])
+def test_dbscan_passes_small_and_overflowing_band(cuda_device, n, monkeypatch):
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(_clustered(rng, n, 64)).to(cuda_device)
+    valid = torch.from_numpy(rng.uniform(size=n) > 0.2).to(cuda_device)
+    x64 = x.double()
+    s = x64[: min(n, 400)]
+    eps = float(torch.quantile(torch.cdist(s, s).flatten(), 0.05)) if n > 1 else 1.0
+    mask = KP.dbscan_non_noise(x, eps, 3, valid)
+    counts = KP.neighbor_counts(x, eps, valid)
+    # the same on every run, and with a band list too small for one pass
+    monkeypatch.setattr(KP, "_band_cap", lambda n: 1)
+    if KP.last_band_pairs > 1:
+        with pytest.warns(UserWarning, match="overflowed"):
+            again = KP.dbscan_non_noise(x, eps, 3, valid)
+    else:
+        again = KP.dbscan_non_noise(x, eps, 3, valid)
+    assert torch.equal(again, mask)
+    assert torch.equal(KP.neighbor_counts(x, eps, valid), counts)
+    delta = 1e-4
+    lo = KP.dbscan_non_noise_plain(x64, eps * (1 - delta) ** 0.5, 3, valid)
+    hi = KP.dbscan_non_noise_plain(x64, eps * (1 + delta) ** 0.5, 3, valid)
+    assert not bool((lo & ~mask).any()) and not bool((mask & ~hi).any())

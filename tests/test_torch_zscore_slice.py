@@ -191,10 +191,16 @@ def test_trainer_cpu_runs_the_zscore_presets(name, epochs, capsys):
     text = capsys.readouterr().out
     strain_epoch = 0 if cfg.strain.prefilter else cfg.strain.start_epoch
     kept = tr.mask_history[strain_epoch]
-    assert f"Epoch {strain_epoch}: Removed {tr.dataset.n - kept.sum()} outliers." in text
     assert 0 < kept.sum() <= tr.dataset.n and out[-1]["active"] == kept.sum()
     assert all(m.all() for m in tr.mask_history[:strain_epoch])
-    assert [q["epoch"] for q in tr.strain_quality] == ([strain_epoch] if kept.sum() < 64 else [])
+    if cfg.strain.prefilter:
+        # as in the JAX package: the prefilter is no strain event, so no
+        # console line and no strain-quality record
+        assert "Removed" not in text and tr.strain_quality == []
+    else:
+        assert f"Epoch {strain_epoch}: Removed {tr.dataset.n - kept.sum()} outliers." in text
+        assert [q["epoch"] for q in tr.strain_quality] == (
+            [strain_epoch] if kept.sum() < 64 else [])
     assert all(np.isfinite(x) for x in tr.logger.D_losses + tr.logger.G_losses)
     # CPU tensors take the plain versions: no kernel launched
     assert set(tr.kernel_launches.values()) == {0}
