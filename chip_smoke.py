@@ -12,7 +12,14 @@ script exits non-zero without printing its result line:
    held against its plain PyTorch version on the same inputs, and timed
    with CUDA events beside its plain version (and, where one PyTorch call
    computes the same function, that call).  K1 and K2 at the ``final``
-   path's shapes; K3 (DBSCAN neighbour counts) on 40,000 x 512 clustered
+   path's shapes (K2b bit-equal to its plain version; K1 also with ``out=``,
+   in place and replayed from a CUDA graph, and timed per call both back
+   to back and from a graph of 100 calls, which leaves the host out);
+   then the JAX fixture: the seeded inputs of
+   ``tests/fixtures/torch_port_jax_masks.npz`` made again, and the card's
+   max-|z| masks (fixed, elbow, quantile at the K3 clean ratio) and loss
+   mask held to the JAX package's stored decisions, each flip printed with
+   its distance to the threshold; K3 (DBSCAN neighbour counts) on 40,000 x 512 clustered
    features, held to a float64 sandwich, its 3xTF32 d^2 error on sampled
    pairs held to its error band, the pairs it redecided in the band and
    its adjacency bitmask's size printed, and timed at 40,000 and at
@@ -60,6 +67,49 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, published
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, published
 H100_3XTF32_FLOPS = 494.7e12 / 3  # float32 products as three TF32 products, published TF32
 PR5_KEPT = 21_275  # zscore_dbscan prefilter kept, with the direct-form K3 on the same data
+JAX_FIXTURE = HERE / "tests" / "fixtures" / "torch_port_jax_masks.npz"
+FIXTURE_SEED = 7
+FIXTURE_LOSS_RATIO = 0.8  # `final`'s clean-ratio schedule at epoch 3, passed as loss_ratio
+# logits where sigmoid saturates to 1, or its float32 value is subnormal and flushed to 0
+SATURATING_LOGITS = (30.0, -30.0, 120.0, -120.0, 99.5, -99.5, 87.5, -87.5,
+                     100.0, -100.0, 87.3, -87.3, -88.0, 0.0)
+
+
+def fixture_inputs(seed: int = FIXTURE_SEED) -> dict:
+    """The inputs of the committed JAX outputs, made with numpy from ``seed``
+    the same way on every machine.
+
+    ``features``: 4,096 x 512 float32, clustered as ``k3_phase`` clusters
+    (160-point clusters of spread 0.5 around centres of spread 4, 20% spread
+    noise rows), about 1% outlier rows scaled by 3 and one constant column;
+    standardised, the clusters lie far inside DBSCAN's eps = 20 and the
+    noise rows far outside it, so the clean ratio is about 0.8.  ``valid``:
+    about 90% of the rows.  ``logits``: 8,192 float32 D logits (spread 8,
+    a uniform stretch over the -100 clamp, and ``SATURATING_LOGITS``);
+    ``loss_valid``: about 90% of them.
+    """
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n, d = 4096, 512
+    centers = rng.standard_normal((n // 160 + 1, d)) * 4.0
+    x = centers[rng.integers(0, centers.shape[0], n)] + rng.standard_normal((n, d)) * 0.5
+    noise = rng.random(n) < 0.2
+    x[noise] = rng.standard_normal((int(noise.sum()), d)) * 4.0
+    x[rng.choice(n, n // 100, replace=False)] *= 3.0
+    x[:, 7] = 3.0
+    m = 8192 - 1024 - len(SATURATING_LOGITS)
+    logits = np.concatenate([rng.standard_normal(m) * 8.0, rng.uniform(-110.0, 110.0, 1024),
+                             SATURATING_LOGITS])
+    return dict(features=x.astype(np.float32), valid=rng.random(n) > 0.1,
+                logits=logits.astype(np.float32), loss_valid=rng.random(8192) > 0.1)
+
+
+def input_digests(inputs: dict) -> dict:
+    """SHA-256 of each input's bytes."""
+    import hashlib
+
+    return {k: hashlib.sha256(v.tobytes()).hexdigest() for k, v in inputs.items()}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -86,6 +136,23 @@ def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(torch, fn, calls: int = 100, replays: int = 20) -> float:
+    """Device time per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph, replayed ``replays`` times between CUDA events, so the host's
+    cost per call is not in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, as capture wants
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_ms(torch, graph.replay, iters=replays, warmup=2) / calls
+
+
 def bound_ms(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
     t_ops = n_ops / H100_F32_FLOPS * 1e3
@@ -105,8 +172,9 @@ def kernel_phase(torch, port):
     # ---- K1: (N,) logits of the base subset, N = 70,000, incl. saturation
     n = 70_000
     x = torch.randn(n, generator=g, device=dev) * 8.0
-    x[:8] = torch.tensor([30.0, -30.0, 120.0, -120.0, 99.5, -99.5, 87.5, -87.5])
+    x[:len(SATURATING_LOGITS)] = torch.tensor(SATURATING_LOGITS)
     err = 0.0
+    buf = torch.empty_like(x)
     for t in (1.0, 0.0, 0.9):
         got, ref = KB.bce_scores(x, t), KB.bce_scores_plain(x, t)
         torch.cuda.synchronize()
@@ -115,14 +183,42 @@ def kernel_phase(torch, port):
         check(not bool(bad.any()), f"K1 disagrees with its plain version at t={t}: "
               f"{int(bad.sum())} lanes beyond 2e-6 * max(1, |ref|)")
         err = max(err, float((got - ref).abs().max()))
-    t_k = time_ms(torch, lambda: KB.bce_scores(x, 1.0))
-    t_p = time_ms(torch, lambda: KB.bce_scores_plain(x, 1.0))
+        # into a given buffer, and over the logits themselves (the scoring pass)
+        check(KB.bce_scores(x, t, out=buf) is buf and torch.equal(buf, got),
+              f"K1 with out= differs at t={t}")
+        inplace = x.clone()
+        KB.bce_scores(inplace, t, out=inplace)
+        check(torch.equal(inplace, got), f"K1 in place differs at t={t}")
     ones = torch.ones_like(x)
-    t_l = time_ms(torch, lambda: F.binary_cross_entropy(torch.sigmoid(x), ones,
-                                                        reduction="none"))
+
+    def library():
+        return F.binary_cross_entropy(torch.sigmoid(x), ones, reduction="none")
+
+    # back to back (host and device), as the scoring pass calls it (out= its
+    # logit buffer) and allocating; then device time alone, from CUDA graphs
+    t_k = time_ms(torch, lambda: KB.bce_scores(x, 1.0, out=buf))
+    t_ka = time_ms(torch, lambda: KB.bce_scores(x, 1.0))
+    t_p = time_ms(torch, lambda: KB.bce_scores_plain(x, 1.0))
+    t_l = time_ms(torch, library)
+    g_k = graph_ms(torch, lambda: KB.bce_scores(x, 1.0, out=buf))
+    g_l = graph_ms(torch, library)
+    buf.zero_()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        KB.bce_scores(x, 1.0, out=buf)
+    graph.replay()
+    ref = KB.bce_scores_plain(x, 1.0)
+    torch.cuda.synchronize()
+    check(not bool(((buf - ref).abs() > 2e-6 * ref.abs().clamp_min(1.0)).any()),
+          "K1 replayed from a CUDA graph disagrees with its plain version")
     b, by = bound_ms(8.0 * n, 12.0 * n)
-    phase("kernels", f"K1 bce_scores N={n}: max_abs_err={err:.3g} (tol 2e-6*max(1,|ref|)) "
-          f"kernel_ms={t_k:.5f} plain_ms={t_p:.5f} library_ms={t_l:.5f} bound_ms={b:.5f}")
+    phase("kernels", f"K1 bce_scores N={n}: max_abs_err={err:.3g} (tol 2e-6*max(1,|ref|)); "
+          f"out= and in place bit-equal to the allocating call; back to back: "
+          f"kernel_ms={t_k:.5f} (out=) {t_ka:.5f} (allocating) plain_ms={t_p:.5f} "
+          f"library_ms={t_l:.5f}; device only (CUDA graph of 100, replayed): "
+          f"kernel_ms={g_k:.5f} library_ms={g_l:.5f}, so the host adds "
+          f"{t_k - g_k:.5f} / {t_l - g_l:.5f} ms a call; bound_ms={b:.5f}; "
+          f"graph replay agrees with plain")
     results.append(dict(name="bce_scores", route="cuda",
                         source="strainer_gan_tpu_torch/csrc/bce.cu",
                         replaces="strainer_gan_tpu/kernels/bce.py:22", max_abs_err=err,
@@ -153,8 +249,7 @@ def kernel_phase(torch, port):
             z_p = KZ.row_max_abs_z_plain(f, mean, std)
             torch.cuda.synchronize()
             err_b = max(err_b, float((z - z_p).abs().max()))
-            check(not bool(((z - z_p).abs() > 1e-5 * z_p.abs().clamp_min(1.0)).any()),
-                  f"K2b disagrees with plain ({mode})")
+            check(torch.equal(z, z_p), f"K2b is not bit-equal to its plain version ({mode})")
             # the composed statistic and its mask at threshold 5.0
             mz = KZ.masked_max_abs_z(f, v, mode)
             mz_p = TH._masked_max_abs_z(f, v, mode)
@@ -171,13 +266,16 @@ def kernel_phase(torch, port):
     mean, std = KZ.column_stats(f, None, "torch")
     t_b = time_ms(torch, lambda: KZ.row_max_abs_z(f, mean, std), iters=20)
     t_bp = time_ms(torch, lambda: KZ.row_max_abs_z_plain(f, mean, std), iters=20)
+    # a yardstick of one read of F, not the same function: PyTorch's row max
+    t_read = time_ms(torch, lambda: f.amax(dim=1), iters=20)
     ba, bya = bound_ms(4.0 * n * d + 8.0 * d, 4.0 * n * d)
     bb, byb = bound_ms(4.0 * n * d + 8.0 * d + 4.0 * n, 4.0 * n * d)
     phase("kernels", f"K2a zscore_column_stats {n}x{d}: max_abs_err={err_a:.3g} "
           f"(tol 1e-5*max(1,|ref|)) kernel_ms={t_a:.5f} plain_ms={t_ap:.5f} "
           f"library_ms={t_al:.5f} (torch.std_mean) bound_ms={ba:.5f}")
-    phase("kernels", f"K2b zscore_row_max {n}x{d}: max_abs_err={err_b:.3g} "
-          f"kernel_ms={t_b:.5f} plain_ms={t_bp:.5f} bound_ms={bb:.5f}; "
+    phase("kernels", f"K2b zscore_row_max {n}x{d}: max_abs_err={err_b:.3g} (bit-equal) "
+          f"kernel_ms={t_b:.5f} plain_ms={t_bp:.5f} bound_ms={bb:.5f} "
+          f"(one read of F by torch.amax(f, dim=1): {t_read:.5f} ms); "
           f"mask at 5.0 differs only within 1e-5 of it: {n_near} lanes")
     results.append(dict(name="zscore_column_stats", route="cuda",
                         source="strainer_gan_tpu_torch/csrc/zscore.cu",
@@ -188,6 +286,83 @@ def kernel_phase(torch, port):
                         replaces="strainer_gan_tpu/kernels/zscore.py:78", max_abs_err=err_b,
                         ms=t_b, plain_ms=t_bp, bound_ms=bb, bound_by=byb, library_ms=None))
     return results
+
+
+def jax_fixture_phase(torch, np):
+    """The card's strain decisions against the JAX package's, on the inputs
+    of ``JAX_FIXTURE`` (written on the CPU by tests/test_torch_jax_fixture.py).
+
+    The inputs are made again from their seed and must hash as stored.  On
+    the card: max-|z| through K2a+K2b and its fixed (5.0), elbow and quantile
+    masks; the clean ratio through K2a+K3 (standardise, two passes); the
+    losses through K1 and their percentile mask.  A z-score flip must lie
+    within 1e-5 (relative) of the JAX threshold; the clean ratio inside the
+    stored float64 sandwich; the losses within K1's 2e-6 * max(1, |ref|) of
+    the JAX losses, and the loss mask must flip nothing."""
+    from strainer_gan_tpu_torch.kernels import bce as KB
+    from strainer_gan_tpu_torch.ops import dbscan as DB
+    from strainer_gan_tpu_torch.strain import thresholds as TH
+
+    with np.load(JAX_FIXTURE) as z:
+        ref = {k: z[k] for k in z.files}
+    inputs = fixture_inputs()
+    for k, digest in input_digests(inputs).items():
+        check(str(ref[f"sha256_{k}"]) == digest, f"fixture input {k} is not the one stored")
+    dev = torch.device("cuda")
+    f = torch.from_numpy(inputs["features"]).to(dev)
+    valid = torch.from_numpy(inputs["valid"]).to(dev)
+
+    def flips(key, mask, scores):
+        """Lanes where ``mask`` differs from the stored one, and each one's
+        distance to the JAX threshold, relative to it."""
+        diff = mask.cpu().numpy() != ref[key]
+        thr = float(ref[key.replace("_", "_thr_", 1)])
+        dist = np.abs(scores[diff].astype(np.float64) - thr) / abs(thr)
+        worst = float(dist.max()) if diff.any() else 0.0
+        check(worst <= 1e-5, f"{key}: a flip lies {worst:.3g} (relative) from the JAX "
+              f"threshold {thr}, beyond 1e-5")
+        return f"{int(diff.sum())}" + (f" (at {', '.join(f'{x:.2g}' for x in dist)})"
+                                        if diff.any() else "")
+
+    for m in ("all", "valid"):
+        v = valid if m == "valid" else None
+        ratio = DB.dbscan_clean_ratio(f, 20.0, 3, v)
+        k = round(float(ratio) * (int(valid.sum()) if v is not None else f.shape[0]))
+        lo, hi = (int(c) for c in ref[f"sandwich_{m}"])
+        check(lo <= k <= hi, f"clean ratio ({m}): {k} non-noise outside the float64 "
+              f"sandwich [{lo}, {hi}]")
+        for mode in ("torch", "numpy_eps"):
+            tag = f"{mode}_{m}"
+            mz = TH.masked_max_abs_z(f, v, mode)
+            scores = mz.cpu().numpy()
+            want = ref[f"mz_{tag}"]
+            rel = float(np.max(np.abs(scores - want) / np.maximum(1.0, np.abs(want))))
+            fixed = flips(f"fixed_{tag}", TH.zscore_threshold_mask(mz, 5.0, True, v)[0], scores)
+            elbow_mask, elbow_thr = TH.zscore_elbow_mask(mz, v)
+            elbow = flips(f"elbow_{tag}", elbow_mask, scores)
+            quant_mask, quant_thr = TH.zscore_quantile_mask(mz, ratio, v)
+            quant = flips(f"quantile_{tag}", quant_mask, scores)
+            phase("jax_fixture", f"{mode} std, {m} rows: max|z| within {rel:.3g} of JAX's "
+                  f"(relative to max(1, |ref|)); flips against JAX: fixed 5.0 {fixed}, "
+                  f"elbow {elbow} (threshold {float(elbow_thr):.8g}, JAX "
+                  f"{float(ref[f'elbow_thr_{tag}']):.8g}), quantile {quant} (clean ratio "
+                  f"{float(ratio):.8g}, JAX {float(ref[f'ratio_{m}']):.8g}, {k} non-noise in "
+                  f"[{lo}, {hi}]; threshold {float(quant_thr):.8g}, JAX "
+                  f"{float(ref[f'quantile_thr_{tag}']):.8g})")
+    x = torch.from_numpy(inputs["logits"]).to(dev)
+    loss_valid = torch.from_numpy(inputs["loss_valid"]).to(dev)
+    for t in (1.0, 0.9):
+        losses = KB.bce_scores(x, t)
+        want = torch.from_numpy(ref[f"loss_{t}"]).to(dev)
+        err = float(((losses - want).abs() / want.abs().clamp_min(1.0)).max())
+        check(err <= 2e-6, f"K1 losses at t={t} differ from JAX's by {err:.3g} of max(1, |ref|)")
+        mask, thr = TH.percentile_refine_mask(losses, FIXTURE_LOSS_RATIO, loss_valid)
+        n_flip = int((mask.cpu().numpy() != ref[f"loss_mask_{t}"]).sum())
+        check(n_flip == 0, f"loss mask at t={t}: {n_flip} lanes flipped against JAX")
+        phase("jax_fixture", f"K1 target {t}: losses within {err:.3g} of JAX's (relative to "
+              f"max(1, |ref|), tol 2e-6); percentile mask at loss_ratio {FIXTURE_LOSS_RATIO} "
+              f"flips 0 of {x.shape[0]} (threshold {float(thr):.8g}, JAX "
+              f"{float(ref[f'loss_thr_{t}']):.8g})")
 
 
 def k3_phase(torch):
@@ -530,6 +705,7 @@ def main() -> int:
             print("  ptxas: " + line.strip())
 
     results = kernel_phase(torch, port)
+    jax_fixture_phase(torch, np)
     k3 = k3_phase(torch)
     launches = slice_phase(torch, np)
     for r in results:

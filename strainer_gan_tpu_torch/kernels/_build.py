@@ -21,6 +21,8 @@ import time
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -132,6 +134,12 @@ def load_library() -> ctypes.CDLL:
         lib.sg_dbscan_near_core.restype = i32
         _lib = lib
         return lib
+
+
+def current_stream(device: int) -> int:
+    """The handle of PyTorch's current stream on a CUDA device (the
+    capturing stream inside a CUDA graph capture), as an integer."""
+    return torch._C._cuda_getCurrentRawStream(device)
 
 
 def check(rc: int, what: str) -> None:

@@ -45,12 +45,12 @@ def score_d_losses(disc: torch.nn.Module, dataset: DeviceDataset,
     reference scores the prefiltered Subset, `# final.py:440-443`) and
     returns scores aligned with it.  The D forward writes its logits into
     one buffer, and ONE launch of the K1 kernel turns the whole buffer
-    into losses.
+    into losses in place (nothing reads the logits afterwards).
     """
     n = dataset.n if subset is None else subset.shape[0]
     logits = torch.empty((n,), dtype=torch.float32, device=dataset.device)
     _batched(lambda x: disc(x, train=False), dataset, logits, batch_size, subset)
-    return bce_scores(logits, real_label)
+    return bce_scores(logits, real_label, out=logits)
 
 
 def score_features(feature_fn: Callable[[torch.Tensor], torch.Tensor],

@@ -9,8 +9,9 @@ the CUDA toolkit are installed:
 does not need.)
 
 Without a GPU every test here skips (the kernels have no CPU mode).
-Tolerances are ``chip_smoke.py``'s: K1 |diff| <= 2e-6 max(1, |ref|), K2
-|diff| <= 1e-5 max(1, |ref|).  K3 decides ``d2 <= eps^2`` exactly, so it is
+Tolerances are ``chip_smoke.py``'s: K1 |diff| <= 2e-6 max(1, |ref|), K2a
+|diff| <= 1e-5 max(1, |ref|), K2b bit-equal (its quotient is correctly
+rounded, as its plain version's).  K3 decides ``d2 <= eps^2`` exactly, so it is
 held to a sandwich: the float64 plain version at eps^2 (1 - 1e-4) gives a
 lower bound of its counts and mask and at eps^2 (1 + 1e-4) an upper one,
 and where the two agree the kernel's counts equal the float64 counts.
@@ -44,6 +45,77 @@ def test_bce_kernel_matches_plain(cuda_device):
         got, ref = KB.bce_scores(x, t), KB.bce_scores_plain(x, t)
         assert torch.all((got - ref).abs() <= 2e-6 * ref.abs().clamp_min(1.0))
     assert KB.bce_scores.launches == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inplace", [False, True])
+def test_bce_kernel_into_out(cuda_device, inplace):
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy((rng.standard_normal(70_001) * 8).astype(np.float32)).to(cuda_device)
+    for t in (1.0, 0.9):
+        want = KB.bce_scores(x, t)
+        out = x.clone() if inplace else torch.empty_like(x)
+        got = KB.bce_scores(out if inplace else x, t, out=out)
+        assert got is out and torch.equal(out, want)
+    with pytest.raises(ValueError):
+        KB.bce_scores(x, 1.0, out=torch.empty(5, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_bce_kernel_replays_from_a_cuda_graph(cuda_device):
+    x = torch.linspace(-110.0, 110.0, 70_000, device=cuda_device)
+    out = torch.empty_like(x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        KB.bce_scores(x, 1.0, out=out)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        KB.bce_scores(x, 1.0, out=out)
+    out.zero_()
+    x.copy_(torch.linspace(-50.0, 50.0, 70_000, device=cuda_device))  # new inputs, same buffer
+    graph.replay()
+    ref = KB.bce_scores_plain(x, 1.0)
+    torch.cuda.synchronize()
+    assert torch.all((out - ref).abs() <= 2e-6 * ref.abs().clamp_min(1.0))
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit, a NaN matching a NaN."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(1, 512), (70_001, 512), (3000, 100), (2049, 30)])
+def test_row_max_kernel_bit_equal(cuda_device, n, d):
+    # float4 groups (512, 100) and the scalar path (30); a zero-std column,
+    # a tiny and a huge std, and rows with a NaN and an inf
+    g = torch.Generator(device=cuda_device).manual_seed(n + d)
+    f = torch.randn((n, d), generator=g, device=cuda_device) * 3.0 - 1.0
+    f[:, 0] = 2.5
+    if n > 3:
+        f[1, d // 2] = float("nan")
+        f[2, 0] = float("nan")  # on the zero-std column: z = 0 there, as plain
+        f[3, 1] = float("inf")
+    for mode in ("torch", "numpy_eps"):
+        mean, std = KZ.column_stats(f, None, mode)
+        assert _same(KZ.row_max_abs_z(f, mean, std), KZ.row_max_abs_z_plain(f, mean, std))
+    std = torch.rand(d, generator=g, device=cuda_device) + 0.1
+    std[1], std[2], std[3] = 1e-30, 1e30, 0.0
+    mean = torch.randn(d, generator=g, device=cuda_device)
+    assert _same(KZ.row_max_abs_z(f, mean, std), KZ.row_max_abs_z_plain(f, mean, std))
+
+
+@pytest.mark.cuda
+def test_row_max_kernel_misaligned_rows(cuda_device):
+    buf = torch.randn(3001 * 512 + 1, device=cuda_device)
+    f = buf[1:].view(3001, 512)  # contiguous, 4 bytes off a 16-byte boundary
+    mean, std = KZ.column_stats(f, None, "torch")
+    before = KZ.row_max_abs_z.launches
+    assert torch.equal(KZ.row_max_abs_z(f, mean, std), KZ.row_max_abs_z_plain(f, mean, std))
+    assert KZ.row_max_abs_z.launches == before + 1
 
 
 @pytest.mark.cuda

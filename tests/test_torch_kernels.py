@@ -48,6 +48,23 @@ def test_bce_plain_matches_jax_and_pallas(rng, target):
     assert KB.bce_scores.launches == launches  # CPU tensors never reach the kernel
 
 
+@pytest.mark.parametrize("target", [1.0, 0.9])
+def test_bce_into_out(rng, target):
+    x = _logits(rng)
+    want = np.asarray(JL.bce_from_logits(jnp.asarray(x), target))
+    out = torch.empty(x.shape[0])
+    got = KB.bce_scores(torch.from_numpy(x), target, out=out)
+    assert got is out
+    assert np.all(np.abs(out.numpy() - want) <= 1e-6 * np.maximum(1.0, np.abs(want)))
+    inplace = torch.from_numpy(x.copy())
+    assert KB.bce_scores(inplace, target, out=inplace) is inplace
+    assert torch.equal(inplace, out)
+    for bad in (torch.empty(x.shape[0] - 1), torch.empty(x.shape[0], dtype=torch.float64),
+                torch.empty((x.shape[0], 1)), torch.empty(2 * x.shape[0])[::2]):
+        with pytest.raises((ValueError, TypeError)):
+            KB.bce_scores(torch.from_numpy(x), target, out=bad)
+
+
 def _features(rng, n=300, d=40):
     f = (rng.standard_normal((n, d)) * rng.uniform(0.5, 3.0, d) + rng.normal(0, 2, d))
     f = f.astype(np.float32)
