@@ -24,29 +24,47 @@ script exits non-zero without printing its result line:
    pairs held to its error band, the pairs it redecided in the band and
    its adjacency bitmask's size printed, and timed at 40,000 and at
    222,599 rows (the real ``zscore_dbscan`` mixture).
-3. slice: the port's ``Trainer`` runs the ``final`` preset at full model
-   width (nz=100, ngf=ndf=64, 64x64x3), batch 128, for 4 epochs: z-score
-   prefilter on ResNet18 features, D-first steps, the loss-percentile
-   strain at epoch 3 with its LR cut.
-4. zscore_dbscan: the ``zscore_dbscan`` preset at full width, batch 128, on
+3. slice: ``final`` exactly as the preset ships it (``score_precision=
+   "band_bf16"``), through the port's command line (``cli.run``) with
+   ``--epochs 4 --max-synth 8192 --out <tmp> --checkpoint-every 1
+   --save-samples-every 2 --parity-check``: z-score prefilter on ResNet18
+   features, D-first steps at full model width (nz=100, ngf=ndf=64,
+   64x64x3), batch 128, the loss-percentile strain at epoch 3 scored by the
+   band path (bf16 bulk, f32 band), its LR cut; the outputs (PNGs read back,
+   ``metrics.json``, checkpoints, fixed-noise grids, the parity report at
+   1.0) are checked.
+4. band: a fresh Trainer restored from the run's epoch-2 checkpoint strains
+   at epoch 3; its mask must equal the uninterrupted run's, and the all-f32
+   path (``score_d_losses`` + ``percentile_refine_mask``) on the same D must
+   give the same mask (0 flips) and threshold.  Prints the band's statistics
+   and K1's launches in the event, and times the band path against the f32
+   path at the same N.
+5. zscore_dbscan: the ``zscore_dbscan`` preset at full width, batch 128, on
    its full synthetic mixture (40,000 images): the DBSCAN-calibrated
    z-score prefilter (K2, then K3 twice), then training.
-5. zscore_elbow and zscore: each preset up to its strain event.
+6. zscore_elbow and zscore: each preset up to its strain event.
+7. basic: one epoch through the command line, no strainer.
+8. zscore_loss: through the command line, epochs 0-3: the elbow prefilter
+   (K2a, K2b) held to the numpy oracle's elbow mask (agreement >= 0.99, the
+   repo's own bound), then the epoch-3 loss strain (K1) held to numpy's
+   percentile, and the parity report at 1.0.
 
-Launch counters are zeroed right before each ``run()`` (or ``setup()``)
-and read right after it.
+Launch counters are zeroed right before each path is driven (``cli.run``,
+``run()`` or ``setup()``) and read right after it.
 
 Deviations from the presets, each for a reason:
-- ``final``: ``score_precision="f32"`` (the band_bf16 scoring path is not
-  ported yet; it gives the same mask), ``epochs=4`` (epoch 3 is the first
-  strain event), ``max_synth=8192`` per source (16,384 images, 128 steps
-  per epoch, to bound the run's time).
+- ``final``: ``--epochs 4`` (epoch 3 is the first strain event) and
+  ``--max-synth 8192`` per source (16,384 images, 128 steps per epoch, to
+  bound the run's time).  Nothing else: it scores by the shipped band path.
 - ``zscore_dbscan``: ``epochs=2`` (the prefilter is the preset's only
   strain event; further epochs repeat the same step).
 - ``zscore_elbow``: ``max_synth=2048`` per source and only the prefilter
   (its only strain event).
 - ``zscore``: ``max_synth=2048`` per source and epochs 0-3 (its one strain
   is at epoch 3).
+- ``basic``: ``--max-synth 2048`` and one epoch (it never strains).
+- ``zscore_loss``: ``--max-synth 2048`` per source and epochs 0-3 (its
+  first loss strain is at epoch 3).
 
 The second-to-last lines are one JSON object of per-kernel results and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -58,6 +76,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -490,46 +509,105 @@ def k3_phase(torch):
                 ms_222599=big[0], plain_ms_222599=big[1], bound_ms_222599=big[2])
 
 
-def slice_phase(torch, np):
-    from strainer_gan_tpu_torch import get_preset, kernels
-    from strainer_gan_tpu_torch.train.loop import Trainer
+def check_png(path: Path, width: int, height: int) -> None:
+    """``path`` is a whole 8-bit RGB PNG of ``width`` x ``height``: the
+    signature, every chunk's CRC, IHDR, IEND, and IDAT inflating to one
+    filter byte plus ``3 * width`` bytes per row."""
+    import struct
+    import zlib
 
-    cfg = get_preset("final")
-    cfg = cfg.replace(
-        data=dataclasses.replace(cfg.data, batch_size=128),
-        strain=dataclasses.replace(cfg.strain, score_precision="f32"),
-        train=dataclasses.replace(cfg.train, epochs=4),
-    )
-    t0 = time.perf_counter()
-    tr = Trainer(cfg, max_synth=8192)
-    torch.cuda.synchronize()
-    phase("slice", f"final preset: {tr.dataset.n} images staged on the card, G/D at "
-          f"nz={cfg.model.nz} ngf={cfg.model.ngf} ndf={cfg.model.ndf}, "
-          f"compute {cfg.model.compute_dtype} ({time.perf_counter() - t0:.1f} s)")
+    data = path.read_bytes()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path.name}: not a PNG")
+    pos, ihdr, idat, end = 8, None, b"", False
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
+        check(zlib.crc32(tag + body) & 0xFFFFFFFF == crc, f"{path.name}: bad CRC in {tag}")
+        if tag == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        end = tag == b"IEND"
+        pos += 12 + length
+    check(ihdr is not None and ihdr[:4] == (width, height, 8, 2) and end,
+          f"{path.name}: header {ihdr}, want {width}x{height} RGB 8-bit, ending in IEND")
+    check(len(zlib.decompress(idat)) == height * (1 + 3 * width), f"{path.name}: pixel data")
 
+
+def grid_side(n: int, nrow: int, size: int = 64, padding: int = 2) -> tuple:
+    """(width, height) of ``make_grid``'s grid of ``n`` images."""
+    return nrow * (size + padding) + padding, -(-n // nrow) * (size + padding) + padding
+
+
+def epoch_step_times(tr, bs: int) -> list:
+    """The logger's host seconds per step, split by epoch (the epochs'
+    step counts from their masks: drop_last=False batches)."""
+    times, out, i = tr.logger.step_times, [], 0
+    for m in tr.mask_history:
+        steps = -(-int(m.sum()) // bs)
+        out.append(times[i:i + steps])
+        i += steps
+    check(i == len(times), "step timings do not cover the epochs' steps")
+    return out
+
+
+def slice_phase(torch, np, out_dir: Path):
+    """``final`` as shipped, through the port's command line."""
+    from strainer_gan_tpu_torch import cli, get_preset, kernels
+
+    args = ["--preset", "final", "--epochs", "4", "--max-synth", "8192", "--out", str(out_dir),
+            "--checkpoint-every", "1", "--save-samples-every", "2", "--parity-check"]
+    phase("slice", "python -m strainer_gan_tpu_torch.cli " + " ".join(args))
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    out = tr.run()
+    tr, results = cli.run(args)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     launches = kernels.launch_counts()
 
+    cfg = tr.cfg
+    shipped = get_preset("final")
+    check(cfg == shipped.replace(train=dataclasses.replace(shipped.train, epochs=4)),
+          "the final preset was changed beyond --epochs")
+    check(cfg.strain.score_precision == "band_bf16", "final does not score by the band path")
     eng = tr.engine
     base = eng.base_active.cpu().numpy()
     refined = tr.mask_history[3]
-    check(out[3]["lr_d"] == cfg.train.lr_d * cfg.train.lr_decay_factor, "no LR cut at epoch 3")
+    check(tr.opt_d.param_groups[0]["lr"] == cfg.train.lr_d * cfg.train.lr_decay_factor,
+          "no LR cut at epoch 3")
     check(0 < base.sum() <= tr.dataset.n, "empty prefilter mask")
+    check(all(np.array_equal(m, base) for m in tr.mask_history[:3]), "strained before epoch 3")
     check(0 < refined.sum() < base.sum() and not refined[~base].any(),
           "strain mask empty or outside the prefilter base")
+    n_steps = len(tr.logger.step_times)
     losses = tr.logger.D_losses + tr.logger.G_losses
-    check(len(losses) == 2 * sum(o["steps"] for o in out) and np.all(np.isfinite(losses)),
-          "non-finite or missing losses")
-    # the strain decision against numpy's percentile on the same scores
+    check(n_steps == results["summary"]["steps"] and len(losses) == 2 * n_steps
+          and np.all(np.isfinite(losses)), "non-finite or missing losses")
+    check(eng.last_score_path == "band", f"epoch 3 scored by the {eng.last_score_path} path")
+    # the strain decision against numpy's percentile on the same (hybrid) scores
     scores = eng.last_scores.cpu().numpy()
     thr = float(eng.last_threshold)
     thr_np = float(np.percentile(scores[base].astype(np.float64), 20.0))
     check(abs(thr - thr_np) <= 1e-6 * max(1.0, abs(thr_np)), f"threshold {thr} vs numpy {thr_np}")
     check(np.array_equal(refined, base & (scores < thr)), "strain mask is not loss < threshold")
+    parity = results.get("parity", {})
+    check(parity.get("method") == "loss_percentile" and parity.get("agreement") == 1.0,
+          f"parity report {parity}")
+    with open(out_dir / "metrics.json") as f:
+        check(json.load(f) == results, "metrics.json is not the printed result")
+    check_png(out_dir / "samples.png", *grid_side(64, 8))
+    for e in (2, 4):
+        check_png(out_dir / f"samples_epoch{e}.png", *grid_side(25, 5))
+    check(all((out_dir / "ckpt" / f"epoch_{e}" / "state.pt").exists() for e in range(4)),
+          "a checkpoint is missing")
+    te = cfg.train.sample_every
+    want_grids = len(range(0, n_steps, te)) + ((n_steps - 1) % te != 0)
+    check(len(tr.img_list) == want_grids and all(np.isfinite(g).all() for g in tr.img_list),
+          f"{len(tr.img_list)} fixed-noise grids, want {want_grids}")
+    check(len(tr.epoch_loss_history) == 4
+          and [len(h) for h in tr.epoch_loss_history] == [int(m.sum()) for m in tr.mask_history],
+          "per-epoch loss history")
     with torch.no_grad():
         fake = tr.gen(torch.randn((4, cfg.model.nz), device="cuda"), train=False)
     check(tuple(fake.shape) == (4, 3, 64, 64) and bool(torch.isfinite(fake).all()),
@@ -537,24 +615,170 @@ def slice_phase(torch, np):
     for name in ("bce_scores", "zscore_column_stats", "zscore_row_max"):
         check(launches[name] > 0, f"kernel {name} never launched on the main path")
 
-    setup_s = total - sum(o["seconds"] for o in out)
-    phase("slice", f"prefilter kept {int(base.sum())}/{tr.dataset.n} "
-          f"(threshold {cfg.strain.z_threshold}) in {setup_s:.2f} s")
+    n_rescored, fell_back, drift = eng.last_band_stats.tolist()
+    phase("slice", f"{tr.dataset.n} images, G/D at nz={cfg.model.nz} ngf={cfg.model.ngf} "
+          f"ndf={cfg.model.ndf}, compute {cfg.model.compute_dtype}, batch "
+          f"{cfg.data.batch_size}, score_precision {cfg.strain.score_precision}; "
+          f"whole CLI run {total:.2f} s ({results['wall_s']} s by its own clock)")
     quality = "".join(f", removed {q['removed']} with precision {q['precision']:.4f} "
                       f"recall {q['recall']:.4f} against the contamination labels"
                       for q in tr.strain_quality)
-    phase("slice", f"epoch 3 strain kept {int(refined.sum())}/{int(base.sum())}, "
-          f"loss threshold {thr:.6g}{quality}")
-    for e, o in enumerate(out):
-        train_s = o["seconds"] - o["strain_seconds"]
-        phase("slice", f"epoch {e}: strain {o['strain_seconds']:.3f} s, {o['steps']} steps "
-              f"in {train_s:.3f} s, {train_s / max(o['steps'], 1):.5f} s/step, "
-              f"lr_d {o['lr_d']:g}")
-    steady = out[1:3]
-    phase("slice", "steady s/step (epochs 1-2): "
-          f"{sum(o['seconds'] - o['strain_seconds'] for o in steady) / sum(o['steps'] for o in steady):.5f}")
+    phase("slice", f"prefilter kept {int(base.sum())}/{tr.dataset.n} (threshold "
+          f"{cfg.strain.z_threshold}); epoch 3 strain kept {int(refined.sum())}/"
+          f"{int(base.sum())}, loss threshold {thr:.8g}{quality}; band: re-scored "
+          f"{n_rescored:.0f}, fell back to f32 {fell_back:.0f}, max normalised drift "
+          f"{drift:.3g} (half-band {cfg.strain.band_eps / 2}); parity {json.dumps(parity)}")
+    per_epoch = epoch_step_times(tr, cfg.data.batch_size)
+    for e, ts in enumerate(per_epoch):
+        phase("slice", f"epoch {e}: {len(ts)} steps in {sum(ts):.3f} s (host clock between "
+              f"step logs), {sum(ts) / max(len(ts), 1):.5f} s/step")
+    steady = per_epoch[1] + per_epoch[2]
+    phase("slice", f"steady s/step (epochs 1-2): {sum(steady) / len(steady):.5f}; the CLI's "
+          f"mean_step_time {results['summary']['mean_step_time']:.5f}; outputs: samples.png, "
+          f"samples_epoch2/4.png, metrics.json, ckpt/epoch_0-3, {len(tr.img_list)} grids")
     phase("slice", f"kernels {json.dumps(launches)}")
-    return launches
+    return tr, launches
+
+
+def band_phase(torch, np, tr, out_dir: Path):
+    """Resume from the ``final`` run's epoch-2 checkpoint, strain at epoch 3
+    by the band path, and hold it to the uninterrupted run's mask and to the
+    all-f32 path on the same D; time both paths."""
+    from strainer_gan_tpu_torch import kernels
+    from strainer_gan_tpu_torch.checkpoint import restore_checkpoint
+    from strainer_gan_tpu_torch.config import ExperimentConfig
+    from strainer_gan_tpu_torch.strain import score as SC, thresholds as TH
+    from strainer_gan_tpu_torch.train.loop import Trainer
+    from strainer_gan_tpu_torch.train.schedules import clean_ratio_at
+
+    ckpt = out_dir / "ckpt"
+    cfg = ExperimentConfig.from_json((ckpt / "config.json").read_text())
+    check(cfg == tr.cfg, "the checkpoint's config is not the run's")
+    fresh = Trainer(cfg, dataset=tr.dataset)
+    fresh.setup()
+    check(restore_checkpoint(str(ckpt), fresh, epoch=2) == 3, "restore did not resume at 3")
+    eng = fresh.engine
+    kernels.reset_launch_counts()
+    mask = eng.on_epoch_start(3)
+    torch.cuda.synchronize()
+    k1 = kernels.launch_counts()["bce_scores"]
+    check(eng.last_score_path == "band", "the resumed strain did not take the band path")
+    check(k1 >= 2, f"K1 launched {k1} times in the band event, not at least 2")
+    got = mask.cpu().numpy()
+    check(np.array_equal(got, tr.mask_history[3]),
+          f"resumed epoch-3 mask flips {int((got != tr.mask_history[3]).sum())} lanes against "
+          "the uninterrupted run's")
+    n_rescored, fell_back, drift = eng.last_band_stats.tolist()
+
+    sc = cfg.strain
+    ratio = clean_ratio_at(3, sc.clean_ratio_schedule)
+    sub, n = eng._base_subset, fresh.dataset.n
+
+    def f32_path():
+        losses = SC.score_d_losses(eng.disc, eng.dataset, batch_size=eng.score_batch, subset=sub)
+        full = torch.full((n,), float("inf"), device="cuda")
+        full[sub] = losses
+        return TH.percentile_refine_mask(full, ratio, valid=eng.base_active)
+
+    def band_path():
+        return SC.fused_percentile_refine(
+            eng.disc, eng.dataset, ratio, eng.base_active, batch_size=eng.score_batch,
+            subset=sub, band_eps=sc.band_eps, band_capacity_frac=sc.band_capacity_frac)[:2]
+
+    f_mask, f_thr = f32_path()
+    flips = int((f_mask != mask).sum())
+    check(flips == 0, f"the band mask flips {flips} lanes against the f32 mask")
+    check(float(f_thr) == float(eng.last_threshold),
+          f"band threshold {float(eng.last_threshold)!r} vs f32 {float(f_thr)!r}")
+
+    def best_of_3(fn):
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t)
+        return best
+
+    t_band, t_f32 = best_of_3(band_path), best_of_3(f32_path)
+    m = int(sub.shape[0]) if sub is not None else n
+    phase("band", f"restored epoch 2 into a fresh Trainer: its epoch-3 band mask equals the "
+          f"uninterrupted run's ({int(mask.sum())} kept of {m}); the f32 path on the same D "
+          f"flips 0, threshold equal ({float(f_thr):.8g}); re-scored {n_rescored:.0f} of {m}, "
+          f"fell back {fell_back:.0f}, max normalised drift {drift:.4g} (band_eps / 2 = "
+          f"{sc.band_eps / 2}); K1 launched {k1} times in the band event")
+    phase("band", f"scoring at N={m} (best of 3, synchronised): band path {t_band * 1e3:.2f} ms, "
+          f"f32 path {t_f32 * 1e3:.2f} ms, ratio {t_band / t_f32:.3f}")
+
+
+def basic_phase(torch, np):
+    """``basic`` (no strainer) through the command line for one epoch."""
+    from strainer_gan_tpu_torch import cli
+
+    args = ["--preset", "basic", "--epochs", "1", "--max-synth", "2048"]
+    t0 = time.perf_counter()
+    tr, results = cli.run(args)
+    torch.cuda.synchronize()
+    check(tr.cfg.strain.method == "none" and tr.engine.last_mask is None
+          and not tr.strain_quality, "basic strained")
+    check(len(tr.mask_history) == 1 and tr.mask_history[0].all(), "basic mask is not all true")
+    losses = tr.logger.D_losses + tr.logger.G_losses
+    check(len(losses) == 2 * results["summary"]["steps"] > 0 and np.all(np.isfinite(losses)),
+          "basic: non-finite or missing losses")
+    phase("basic", f"{tr.dataset.n} images, {results['summary']['steps']} steps, batch "
+          f"{tr.cfg.data.batch_size}, mean_step_time {results['summary']['mean_step_time']:.5f} "
+          f"s, {time.perf_counter() - t0:.2f} s in all; no strain")
+
+
+def zscore_loss_phase(torch, np):
+    """``zscore_loss`` through the command line, epochs 0-3: the elbow
+    prefilter (K2a, K2b), then the epoch-3 loss strain by the band path (K1)."""
+    from strainer_gan_tpu_torch import cli, kernels
+    from strainer_gan_tpu_torch.parity import oracle
+    from strainer_gan_tpu_torch.strain import thresholds as TH
+
+    args = ["--preset", "zscore_loss", "--epochs", "4", "--max-synth", "2048", "--parity-check"]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tr, results = cli.run(args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    check(launches["zscore_column_stats"] >= 1 and launches["zscore_row_max"] >= 1,
+          "K2 not launched on the zscore_loss path")
+    check(launches["bce_scores"] >= 1, "K1 not launched on the zscore_loss path")
+    eng = tr.engine
+    base = eng.base_active.cpu().numpy()
+    check(all(np.array_equal(m, base) for m in tr.mask_history[:3]), "strained before epoch 3")
+    # the prefilter: K2's max-|z| and the elbow, against the numpy oracle
+    mz = TH.masked_max_abs_z(eng._features, None, tr.cfg.strain.z_std_mode)
+    mask, thr = TH.zscore_elbow_mask(mz)
+    z = mz.cpu().numpy()
+    check(np.array_equal(mask.cpu().numpy(), base), "the prefilter is not max|z| < elbow")
+    thr_np, _, _ = oracle.find_elbow_threshold(z)
+    agree = oracle.mask_agreement(base, z < thr_np)
+    check(agree >= 0.99, f"elbow mask agrees {agree} with numpy's, under the repo's 0.99")
+    # the loss strain, as the final phase checks it
+    refined = tr.mask_history[3]
+    scores = eng.last_scores.cpu().numpy()
+    lthr = float(eng.last_threshold)
+    lthr_np = float(np.percentile(scores[base].astype(np.float64), 80.0))
+    check(abs(lthr - lthr_np) <= 1e-6 * max(1.0, abs(lthr_np)),
+          f"loss threshold {lthr} vs numpy {lthr_np}")
+    check(0 < refined.sum() < base.sum() and np.array_equal(refined, base & (scores < lthr)),
+          "zscore_loss strain mask")
+    parity = results.get("parity", {})
+    check(parity.get("agreement") == 1.0, f"zscore_loss parity report {parity}")
+    check(np.all(np.isfinite(tr.logger.D_losses)), "zscore_loss: non-finite losses")
+    n_rescored, fell_back, drift = (eng.last_band_stats.tolist()
+                                    if eng.last_band_stats is not None else (0, 0, 0))
+    phase("zscore_loss", f"{tr.dataset.n} images: elbow prefilter kept {int(base.sum())} at "
+          f"{float(thr):.8g} (numpy {thr_np:.8g}, masks agree {agree}); epoch 3 by the "
+          f"{eng.last_score_path} path kept {int(refined.sum())} at {lthr:.8g} (numpy "
+          f"{lthr_np:.8g}; re-scored {n_rescored:.0f}, fell back {fell_back:.0f}, drift "
+          f"{drift:.3g}); parity {parity.get('agreement')}; {results['summary']['steps']} "
+          f"steps, {seconds:.2f} s in all; kernels {json.dumps(launches)}")
 
 
 def zscore_dbscan_phase(torch, np):
@@ -678,6 +902,7 @@ def zscore_short_phases(torch, np):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import numpy as np
     import torch
 
@@ -707,12 +932,18 @@ def main() -> int:
     results = kernel_phase(torch, port)
     jax_fixture_phase(torch, np)
     k3 = k3_phase(torch)
-    launches = slice_phase(torch, np)
+    with tempfile.TemporaryDirectory() as tmp:
+        tr, launches = slice_phase(torch, np, Path(tmp))
+        band_phase(torch, np, tr, Path(tmp))
+    del tr
     for r in results:
         r["launches"] = launches[r["name"]]
     k3["launches"] = zscore_dbscan_phase(torch, np)["neighbor_counts"]
     results.append(k3)
     zscore_short_phases(torch, np)
+    basic_phase(torch, np)
+    zscore_loss_phase(torch, np)
+    phase("total", f"{time.perf_counter() - t_start:.1f} s from start to here")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}))

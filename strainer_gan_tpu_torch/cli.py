@@ -1,0 +1,172 @@
+"""Command line: run a preset (or a config JSON) end to end (counterpart of
+`strainer_gan_tpu/cli.py`).
+
+    python -m strainer_gan_tpu_torch.cli --preset final --epochs 4 --out runs/x
+    python -m strainer_gan_tpu_torch.cli --preset basic --device cpu --max-synth 64
+    python -m strainer_gan_tpu_torch.cli --list
+
+The JAX CLI's flags, outputs (``metrics.json``, ``samples.png``,
+``samples_epochN.png``, ``ckpt/``, the plots) and printed JSON, plus
+``--device`` (the card by default).  ``--dp`` and ``--eval`` are not ported
+yet: they exit with code 2.  ``run(argv)`` is the body, returning the
+Trainer and the results; ``main`` wraps it.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import time
+from typing import Optional, Tuple
+
+
+class UsageError(Exception):
+    """A request the CLI refuses (exit code 2)."""
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description="strainer_gan_tpu_torch runner")
+    ap.add_argument("--preset", default="basic")
+    ap.add_argument("--config", help="path to a config JSON (overrides --preset)")
+    ap.add_argument("--list", action="store_true", help="list presets and exit")
+    ap.add_argument("--epochs", type=int, help="override epoch count")
+    ap.add_argument("--batch-size", type=int)
+    ap.add_argument("--max-synth", type=int, default=None,
+                    help="cap synthetic dataset size (smoke runs)")
+    ap.add_argument("--out", default=None, help="output dir (samples, ckpts, metrics)")
+    ap.add_argument("--checkpoint-every", type=int, default=0)
+    ap.add_argument("--save-samples-every", type=int, default=0,
+                    help="save a sample grid PNG every N epochs "
+                         "(the reference's GAN_results/ PNGs)")
+    ap.add_argument("--resume", default=None, help="checkpoint dir to resume from")
+    ap.add_argument("--eval", action="store_true", help="not ported yet (exit code 2)")
+    ap.add_argument("--parity-check", action="store_true",
+                    help="report filter-mask agreement vs the numpy oracle")
+    ap.add_argument("--f32", action="store_true",
+                    help="parity mode: full float32 compute")
+    ap.add_argument("--dp", type=int, default=None, help="not ported yet (exit code 2)")
+    ap.add_argument("--describe", action="store_true",
+                    help="print the model/memory breakdown and exit")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    return ap
+
+
+def load_config(args):
+    from .config import ExperimentConfig, get_preset
+
+    if args.config:
+        if not os.path.exists(args.config):
+            raise UsageError(f"config file not found: {args.config}")
+        with open(args.config) as f:
+            cfg = ExperimentConfig.from_json(f.read())
+    else:
+        try:
+            cfg = get_preset(args.preset)
+        except KeyError as e:
+            raise UsageError(e.args[0]) from None
+    if args.epochs is not None:
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train, epochs=args.epochs))
+    if args.batch_size is not None:
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, batch_size=args.batch_size))
+    if args.f32:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype="float32"))
+    return cfg
+
+
+def run(argv=None, stdout=None) -> Tuple[Optional[object], dict]:
+    """Parse ``argv`` and run; returns ``(trainer, results)`` (``trainer`` is
+    None after ``--list``).  Raises ``UsageError`` for a refused request."""
+    out = stdout or sys.stdout
+    args = parser().parse_args(argv)
+    from .config import PRESETS
+
+    if args.list:
+        for name, cfg in sorted(PRESETS.items()):
+            print(f"{name:24s} arch={cfg.model.arch:8s} strain={cfg.strain.method}", file=out)
+        return None, {}
+    for flag, given in (("--dp", args.dp is not None), ("--eval", args.eval)):
+        if given:
+            raise UsageError(f"{flag} is not ported yet")
+    cfg = load_config(args)
+
+    from .obs.images import save_image_grid
+    from .train.loop import Trainer
+    from .utils.trees import dtype_summary, param_count, tree_bytes
+
+    t0 = time.time()
+    trainer = Trainer(cfg, device=args.device, max_synth=args.max_synth)
+    print(f"[strainer] {cfg.name}: dataset n={trainer.dataset.n}, "
+          f"params={param_count(trainer.gen, trainer.disc):,}", file=out, flush=True)
+    if args.describe:
+        for name, m in (("G", trainer.gen), ("D", trainer.disc)):
+            print(f"[strainer] {name}: params={param_count(m):,} bytes={tree_bytes(m):,} "
+                  f"dtypes={dtype_summary(m)}", file=out)
+        img = trainer.dataset.images
+        print(f"[strainer] dataset on {img.device}: {img.numel() * img.element_size():,} "
+              f"bytes ({tuple(img.shape)} {img.dtype})", file=out)
+        return trainer, {}
+
+    trainer.setup()
+    start_epoch = 0
+    if args.resume:
+        from .checkpoint import restore_checkpoint
+
+        start_epoch = restore_checkpoint(args.resume, trainer)
+        print(f"[strainer] resumed from epoch {start_epoch - 1}", file=out)
+
+    epochs = 0
+    for epoch in range(start_epoch, cfg.train.epochs):
+        trainer.run_epoch(epoch)
+        epochs += 1
+        if args.out and args.checkpoint_every and (epoch + 1) % args.checkpoint_every == 0:
+            from .checkpoint import save_checkpoint
+
+            save_checkpoint(os.path.join(args.out, "ckpt"), trainer, epoch)
+        if args.out and args.save_samples_every and (epoch + 1) % args.save_samples_every == 0:
+            # per-epoch sample PNGs (`#8.py:144-147`)
+            save_image_grid(trainer.sample(25),
+                            os.path.join(args.out, f"samples_epoch{epoch + 1}.png"), nrow=5)
+
+    results = dict(name=cfg.name, wall_s=round(time.time() - t0, 2), epochs=epochs,
+                   summary=trainer.logger.summary())
+    if args.parity_check:
+        from .parity.agreement import agreement_report
+
+        results["parity"] = agreement_report(trainer, epoch=cfg.train.epochs - 1)
+    if args.out:
+        import numpy as np
+
+        from .obs.plots import save_loss_curves, save_score_histogram
+
+        os.makedirs(args.out, exist_ok=True)
+        g_losses = trainer.logger.G_losses
+        if g_losses:
+            save_loss_curves(g_losses, trainer.logger.D_losses,
+                             os.path.join(args.out, "losses.png"))
+        eng = trainer.engine
+        if eng.last_scores is not None:
+            save_score_histogram(
+                np.asarray(eng.last_scores.cpu()),
+                None if eng.last_threshold is None else float(eng.last_threshold),
+                os.path.join(args.out, "strain_scores.png"))
+        save_image_grid(trainer.sample(64), os.path.join(args.out, "samples.png"))
+        with open(os.path.join(args.out, "metrics.json"), "w") as f:
+            json.dump(results, f, indent=2)
+    print(json.dumps(results), file=out)
+    return trainer, results
+
+
+def main(argv=None) -> int:
+    try:
+        run(argv)
+    except UsageError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,15 +1,18 @@
 """Typed configuration (counterpart of `strainer_gan_tpu/config.py`).
 
 A copy of the reference's dataclasses, field for field, so a config means
-the same thing in both packages, and of the presets this port runs so far:
-``final`` (`strainer_gan_tpu/config.py:523-532`, `# final.py` live
-section) and the feature-space z-score family ``zscore``, ``zscore_elbow``
-and ``zscore_dbscan`` (`config.py:411-430`).  The other presets come with
-the slices that run them.
+the same thing in both packages, with the same JSON form (a config written
+by either package loads in the other), and of the presets this port runs so
+far: the baselines ``basic`` and ``celeba`` (`strainer_gan_tpu/config.py:366-373`),
+``final`` (`config.py:523-532`, `# final.py` live section), ``zscore_loss``
+(`config.py:455-464`) and the feature-space z-score family ``zscore``,
+``zscore_elbow`` and ``zscore_dbscan`` (`config.py:411-430`).  The other
+presets come with the slices that run them.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
@@ -88,8 +91,10 @@ class StrainConfig:
     # quirk #4: scoring passes leave D in eval mode (`#clean 분포...py:275`)
     bn_eval_after_score: bool = False
     score_batch: int = 512
-    # the port runs "f32" (strain/score.score_d_losses); "band_bf16" is the
-    # reference's default and is not ported yet
+    # loss_percentile scoring: "band_bf16" scores the bulk in bfloat16 and
+    # re-scores the threshold's band in float32 (strain/score.py
+    # fused_percentile_refine; the same mask as "f32"); "f32" scores all
+    # samples in float32 (strain/score.score_d_losses)
     score_precision: str = "band_bf16"
     band_eps: float = 0.05
     band_capacity_frac: float = 0.0625
@@ -150,7 +155,48 @@ class ExperimentConfig:
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)
 
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, default=str)
 
+    @staticmethod
+    def from_json(s: str) -> "ExperimentConfig":
+        """The inverse of ``to_json``, as the JAX package reads it: lists
+        become tuples (one level of nesting), missing sections and fields
+        take their defaults."""
+        raw = json.loads(s)
+
+        def _mk(cls, d):
+            if d is None:
+                return cls()
+            kw = {}
+            for f in dataclasses.fields(cls):
+                if f.name in d:
+                    v = d[f.name]
+                    if isinstance(v, list):
+                        v = tuple(tuple(x) if isinstance(x, list) else x for x in v)
+                    kw[f.name] = v
+            return cls(**kw)
+
+        sources = tuple(
+            _mk(SourceSpec, s) for s in raw.get("data", {}).get("sources", [])
+        ) or (SourceSpec("synthetic_faces"),)
+        data = _mk(DataConfig, {**raw.get("data", {}), "sources": None})
+        data = dataclasses.replace(data, sources=sources)
+        return ExperimentConfig(
+            name=raw.get("name", "custom"),
+            data=data,
+            model=_mk(ModelConfig, raw.get("model")),
+            strain=_mk(StrainConfig, raw.get("strain")),
+            train=_mk(TrainConfig, raw.get("train")),
+            eval=_mk(EvalConfig, raw.get("eval")),
+            parallel=_mk(ParallelConfig, raw.get("parallel")),
+        )
+
+
+_CELEBA_DATA = DataConfig(
+    sources=(SourceSpec("celeba"),), image_size=64, channels=3,
+    batch_size=128, drop_last=False,
+)
 _CELEBA_CIFAR20K = DataConfig(
     sources=(SourceSpec("celeba"), SourceSpec("cifar10", count=20000)),
     mixer="shuffled_combined", drop_last=False,
@@ -160,7 +206,15 @@ _CELEBA_CIFAR_FULL = DataConfig(
     mixer="shuffled_combined", drop_last=False,
 )
 
+_BASIC = ExperimentConfig(
+    name="basic",  # `#%basic.py` — vanilla DCGAN, 5 epochs, no strain
+    data=_CELEBA_DATA,
+    train=TrainConfig(epochs=5),
+)
+
 PRESETS: Dict[str, ExperimentConfig] = {
+    "basic": _BASIC,
+    "celeba": _BASIC.replace(name="celeba"),  # `#celeba.py` (prints only)
     "zscore": ExperimentConfig(
         name="zscore",  # `#z_score.py` — fixed z>5, applied once at epoch 3
         data=_CELEBA_CIFAR20K,
@@ -179,6 +233,16 @@ PRESETS: Dict[str, ExperimentConfig] = {
         data=_CELEBA_CIFAR20K,
         train=TrainConfig(epochs=10),
         strain=StrainConfig(method="zscore_dbscan", prefilter=True, strict_less=False),
+    ),
+    "zscore_loss": ExperimentConfig(
+        name="zscore_loss",  # `# z_score + loss.py` — z prefilter + loss refine
+        data=DataConfig(
+            sources=(SourceSpec("celeba"), SourceSpec("cifar10")),
+            mixer="shuffled_combined", seed=1, drop_last=False),
+        train=TrainConfig(epochs=10, seed=1),
+        strain=StrainConfig(method="loss_percentile", prefilter=True,
+                            z_threshold=None, start_epoch=3, every_epoch=True,
+                            loss_ratio=0.2),
     ),
     "final": ExperimentConfig(
         name="final",  # `# final.py` live section — flagship pipeline

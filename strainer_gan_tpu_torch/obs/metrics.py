@@ -1,26 +1,34 @@
-"""Console logging and loss histories (counterpart of
+"""Console logging, loss histories and step timings (counterpart of
 `strainer_gan_tpu/obs/metrics.py`).
 
 Keeps the reference's console formats: ``[e/E][i/I]\\tLoss_D: ...`` every
 ``log_every`` iterations (`#%basic.py:291-294`) and the strain report
 ``Epoch N: Removed K outliers.`` (`#z_score.py:321`).  Loss histories stay
 device tensors until first read, so collecting them never waits for the
-card; only a console print reads scalars back.
+card; only a console print reads scalars back.  Step timings are the host's
+clock between consecutive ``log_step`` calls: once the launch queue is full
+they follow the device.
 """
 from __future__ import annotations
 
 import sys
+import time
 from typing import Dict, List
 
 import torch
 
 
 class MetricsLogger:
+    """``G_losses`` / ``D_losses`` / ``step_times`` are read-only views built
+    afresh at each read (the losses with one device fetch each)."""
+
     def __init__(self, log_every: int = 50, stream=None):
         self.log_every = log_every
         self.stream = stream or sys.stdout
         self._g_parts: List[torch.Tensor] = []
         self._d_parts: List[torch.Tensor] = []
+        self._timings: List[float] = []  # host seconds per step
+        self._last = time.perf_counter()
 
     @property
     def G_losses(self) -> List[float]:
@@ -30,10 +38,17 @@ class MetricsLogger:
     def D_losses(self) -> List[float]:
         return torch.stack(self._d_parts).tolist() if self._d_parts else []
 
+    @property
+    def step_times(self) -> List[float]:
+        return list(self._timings)
+
     def log_step(self, epoch: int, num_epochs: int, it: int, steps: int,
                  metrics: Dict[str, torch.Tensor]) -> None:
         self._g_parts.append(metrics["errG"])
         self._d_parts.append(metrics["errD"])
+        now = time.perf_counter()
+        self._timings.append(now - self._last)
+        self._last = now
         if self.log_every and it % self.log_every == 0:
             vals = torch.stack([metrics[k].to(torch.float32) for k in
                                 ("errD", "errG", "D_x", "D_G_z1", "D_G_z2")]).tolist()
@@ -47,4 +62,17 @@ class MetricsLogger:
         self.stream.write(
             f"Epoch {epoch}: Removed {removed} outliers. "
             f"{remaining} samples remaining.\n"
+        )
+
+    def summary(self) -> Dict:
+        """Steps, mean host seconds per step past the first two (warm-up),
+        and the last losses (`strainer_gan_tpu/obs/metrics.py:155-172`)."""
+        g, d = self.G_losses, self.D_losses
+        k = 2 if len(self._timings) > 2 else max(len(self._timings) - 1, 0)
+        tail = self._timings[k:]
+        return dict(
+            steps=len(self._timings),
+            mean_step_time=sum(tail) / len(tail) if tail else 0.0,
+            last_G_loss=g[-1] if g else None,
+            last_D_loss=d[-1] if d else None,
         )

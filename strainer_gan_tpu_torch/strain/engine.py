@@ -3,6 +3,7 @@ z-score strainers (counterpart of `strainer_gan_tpu/strain/engine.py`).
 
 | method          | when                                   | reference flow                  |
 |-----------------|----------------------------------------|---------------------------------|
+| none            | never                                  | `#%basic.py`                    |
 | zscore_fixed    | once at ``start_epoch`` (or prefilter) | `#z_score.py:309-321`           |
 | zscore_elbow    | prefilter once                         | `#z_score + 엘보우...:350-359`  |
 | zscore_dbscan   | prefilter once                         | `# z_score + DBSCAN.py:339-358` |
@@ -12,8 +13,10 @@ z-score strainers (counterpart of `strainer_gan_tpu/strain/engine.py`).
 ``prefilter`` runs the z-score strain once before training and makes its
 mask the permanent base; ``on_epoch_start`` runs the one-shot z-score
 strain or the ``loss_percentile`` refinement (per-sample D losses over the
-base subset, then the percentile mask within the base).  The strain state
-is boolean masks over the full device-resident dataset.
+base subset, then the percentile mask within the base; scored in bfloat16
+with a float32 band under ``score_precision="band_bf16"``, or all in
+float32).  The strain state is boolean masks over the full device-resident
+dataset; ``last_mask`` is the mask of the last strain event.
 """
 from __future__ import annotations
 
@@ -40,11 +43,8 @@ class StrainerEngine:
                  feature_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
                  score_batch: int = 512):
         sc = cfg.strain
-        if sc.method not in ("loss_percentile",) + ZSCORE_METHODS:
+        if sc.method not in ("none", "loss_percentile") + ZSCORE_METHODS:
             raise ValueError(f"strain method {sc.method!r} is not ported yet")
-        if sc.method == "loss_percentile" and sc.score_precision != "f32":
-            raise ValueError("only score_precision='f32' is ported; the band_bf16 "
-                             "scoring path gives the same mask and comes later")
         if sc.fake_concat != "none":
             raise ValueError("fake_concat is not ported yet")
         self.cfg = cfg
@@ -60,6 +60,13 @@ class StrainerEngine:
         self.d_bn_eval = False  # quirk: eval mode sticks after scoring
         self.last_threshold = None
         self.last_scores = None  # max-|z| or per-sample losses of the last strain
+        self.last_mask = None  # the mask of the last strain event
+        self.last_band_stats = None  # [n_rescored, fell_back_to_f32, max_drift] (band path)
+        # after the band path overflows (a weakly separating D puts most
+        # scores in the band, and the pass then pays bf16 bulk + full f32),
+        # the Trainer sets this many strain events of plain f32 scoring
+        self.band_cooloff = 0
+        self.last_score_path = None  # "band" | "f32" (the last loss_percentile strain)
         self.last_clean_ratio = None  # DBSCAN clean ratio of the last zscore_dbscan strain
         self._features = None  # cached features for the z-score strainers
         self._base_subset = None  # int64 indices of base_active, when it shrank
@@ -123,17 +130,46 @@ class StrainerEngine:
         mask = self._zscore_mask()
         self._set_base(mask)
         self.active = mask
+        self.last_mask = mask
         return self.active
 
     def prefilter(self) -> torch.Tensor:
         """Once-before-training z-score strain (`# final.py:414-427`; the
         elbow and DBSCAN variants)."""
-        if not self.sc.prefilter:
+        if not self.sc.prefilter or self.sc.method == "none":
             return self.active
         return self._strain_base()
 
+    def _refine(self, loss_ratio: float):
+        """The percentile mask over the base, by the band path or in f32
+        (`engine.py:229-262`)."""
+        sc = self.sc
+        use_band = sc.score_precision == "band_bf16"
+        if use_band and self.band_cooloff > 0:
+            self.band_cooloff -= 1
+            use_band = False
+        if not use_band:
+            mask, thr = TH.percentile_refine_mask(self._losses(), loss_ratio,
+                                                  valid=self.base_active)
+            self.last_band_stats = None  # the stats describe the band path only
+            self.last_score_path = "f32"
+            return mask, thr
+        mask, thr, losses, stats = SC.fused_percentile_refine(
+            self.disc, self.dataset, loss_ratio, self.base_active,
+            real_label=self.cfg.train.real_label, batch_size=self.score_batch,
+            subset=self._base_subset, band_eps=sc.band_eps,
+            band_capacity_frac=sc.band_capacity_frac)
+        if sc.bn_eval_after_score:
+            self.d_bn_eval = True  # SURVEY §2.4 item 4
+        self.last_scores = losses
+        self.last_band_stats = stats
+        self.last_score_path = "band"
+        return mask, thr
+
     def on_epoch_start(self, epoch: int) -> torch.Tensor:
         sc = self.sc
+        if sc.method == "none":
+            return self.active
         if sc.method in ZSCORE_METHODS:
             if sc.prefilter or sc.every_epoch:
                 return self.active
@@ -147,10 +183,10 @@ class StrainerEngine:
             loss_ratio = clean_ratio_at(epoch, sc.clean_ratio_schedule)
         else:
             loss_ratio = sc.loss_ratio
-        losses = self._losses()
-        mask, thr = TH.percentile_refine_mask(losses, loss_ratio, valid=self.base_active)
+        mask, thr = self._refine(loss_ratio)
         self.last_threshold = thr
         self.active = mask
+        self.last_mask = mask
         return self.active
 
     def on_epoch_end(self, epoch: int) -> torch.Tensor:

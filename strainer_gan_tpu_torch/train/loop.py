@@ -5,8 +5,10 @@ blocking path.
 the device, builds G/D and their Adam optimizers, wires the strainer, and
 drives the reference's per-epoch schedule (`# final.py:414-448`):
 prefilter -> [lr cut] -> [re-strain] -> batch loop.  One host fetch per
-strain event (active count and strain accounting) fixes the step count;
-the console prints every ``log_every`` steps are the other host reads.
+strain event (active count, strain accounting and the band path's overflow
+flag) fixes the step count; the console prints every ``log_every`` steps,
+the fixed-noise grids every ``sample_every`` iterations and the epoch's
+per-sample loss history are the other host reads.
 
 ``kernel_launches`` holds how often each CUDA kernel wrapper launched
 during ``run()``.
@@ -27,16 +29,24 @@ from ..models import build_models
 from ..models.features import build_feature_fn
 from ..obs.metrics import MetricsLogger
 from ..strain.engine import StrainerEngine
+from ..utils.trees import finite_check
 from .schedules import lr_at
 from .state import make_optimizers
-from .steps import step_config_from, train_step
+from .steps import autocast, step_config_from, train_step
+
+BAND_COOLOFF_EVENTS = 5  # f32 strain events after a band overflow (`loop.py:302-308`)
 
 
 class Trainer:
-    def __init__(self, cfg: ExperimentConfig, device=None, max_synth: Optional[int] = None):
+    def __init__(self, cfg: ExperimentConfig, device=None, max_synth: Optional[int] = None,
+                 dataset: Optional[DeviceDataset] = None):
+        """``dataset``: an already staged dataset to train on (on ``device``);
+        by default the config's mixture is built and staged."""
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.dataset = DeviceDataset(build_mixture(cfg.data, max_synth=max_synth), self.device)
+        if dataset is None:
+            dataset = DeviceDataset(build_mixture(cfg.data, max_synth=max_synth), self.device)
+        self.dataset = dataset
         gen, disc = build_models(cfg.model, seed=cfg.train.seed)
         self.gen, self.disc = gen.to(self.device), disc.to(self.device)
         self.opt_g, self.opt_d = make_optimizers(cfg, self.gen, self.disc)
@@ -50,9 +60,17 @@ class Trainer:
         self.logger = MetricsLogger(log_every=cfg.train.log_every)
         # one explicit generator for the epoch permutations and the noise
         self.rng = torch.Generator(device=self.device).manual_seed(cfg.train.seed)
+        # the grids' noise, from its own seeded generator; a caller may
+        # replace it (the tests hand both packages the same noise)
+        self.fixed_noise = torch.randn(
+            (cfg.train.fixed_noise_n, cfg.model.nz),
+            generator=torch.Generator().manual_seed(cfg.train.seed + 7)).to(self.device)
+        self.epoch_loss_history: List[np.ndarray] = []
         self.mask_history: List[np.ndarray] = []
+        self.img_list: List[np.ndarray] = []  # fixed-noise grids (`#%basic.py:226`)
         self.strain_quality: List[Dict] = []
         self.kernel_launches: Dict[str, int] = {}
+        self._iters = 0  # global training iterations so far
         self._stats = None  # (n_active, true-positive removals, n_contaminants)
 
     def setup(self) -> None:
@@ -65,11 +83,21 @@ class Trainer:
             self.engine.prefilter()
 
     def _fetch_epoch_stats(self, active: torch.Tensor):
+        """One host fetch; an overflow of the band path puts the engine on
+        ``BAND_COOLOFF_EVENTS`` strain events of f32 scoring (the overflow
+        pays bf16 bulk + full f32, so a persistently concentrated D must
+        not pay it every epoch)."""
         contam = self.dataset.source_id != 0
         dropped = torch.logical_not(active)
-        self._stats = tuple(int(v) for v in torch.stack([
+        band = self.engine.last_band_stats
+        overflow = band[1] if band is not None else torch.zeros((), device=self.device)
+        stats = [int(v) for v in torch.stack([
             active.sum(), torch.logical_and(dropped, contam).sum(), contam.sum(),
-        ]).tolist())
+            overflow.to(torch.int64),
+        ]).tolist()]
+        if stats[3] and self.engine.last_score_path == "band":
+            self.engine.band_cooloff = BAND_COOLOFF_EVENTS
+        self._stats = tuple(stats[:3])
         return self._stats
 
     def _log_strain(self, epoch: int, active: torch.Tensor) -> None:
@@ -105,19 +133,43 @@ class Trainer:
             # exact partial final batch (`#%basic.py:76`): the last step runs
             # with ``tail`` valid lanes
             steps, tail = -(-n_active // bs), n_active % bs
+        if steps == 0:
+            self.logger.stream.write(
+                f"[strainer] WARNING epoch {epoch}: 0 full batches ({n_active} active "
+                f"samples < batch_size {bs}) — no training this epoch\n")
         idx = epoch_batch_indices(active, steps, bs, generator=self.rng)
         d_train = not self.engine.d_bn_eval
+        sampling = bool(t.sample_every)
+        losses = []  # per-sample real losses of the epoch's steps, on the device
         metrics = None
         for i in range(steps):
             ids = idx[i]
             x = normalize_u8(self.dataset.gather(ids), torch.float32)
             z = torch.randn((bs, cfg.model.nz), generator=self.rng, device=self.device)
+            lanes = tail if (tail and i == steps - 1) else None
             metrics = train_step(
                 self.gen, self.disc, self.opt_g, self.opt_d, x,
                 self.dataset.source_id[ids], z, lr_g, lr_d, self.scfg, d_train=d_train,
-                lane_count=tail if (tail and i == steps - 1) else None,
+                lane_count=lanes,
             )
             self.logger.log_step(epoch, t.epochs, i, steps, metrics)
+            losses.append(metrics["real_loss_per_sample"][:lanes])
+            # a grid after every sample_every-th global iteration (`#%basic.py:300-304`)
+            if sampling and (self._iters + i) % t.sample_every == 0:
+                self.img_list.append(self.sample())
+        self._iters += steps
+        # and after the last iteration of the last epoch, unless that one
+        # was a sample point already (`#%basic.py:301`, an ``or``)
+        if sampling and steps and epoch == t.epochs - 1 \
+                and (self._iters - 1) % t.sample_every != 0:
+            self.img_list.append(self.sample())
+        if losses:
+            # the reference's per-epoch ``epoch_losses`` (`# 1,2,8.py:300-303`)
+            self.epoch_loss_history.append(torch.cat(losses).cpu().numpy())
+        if t.check_finite and not finite_check(self.gen, self.disc):
+            raise FloatingPointError(
+                f"non-finite parameters detected after epoch {epoch} — training "
+                "diverged (enable smaller lr or f32 compute)")
         self.engine.on_epoch_end(epoch)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -131,3 +183,23 @@ class Trainer:
         after = launch_counts()
         self.kernel_launches = {k: after[k] - before[k] for k in after}
         return out
+
+    def sample(self, n: Optional[int] = None, train_bn: Optional[bool] = None) -> np.ndarray:
+        """Fixed-noise generator output as (N, H, W, C) float32
+        (`#%basic.py:301-304`; `strainer_gan_tpu/train/loop.py:794-818`).
+
+        The reference never calls ``netG.eval()``: its grids come from
+        BatchNorm in train mode, on the fixed batch's own statistics, under
+        no_grad.  ``train_bn=True`` (``TrainConfig.sample_train_bn``) does
+        that and, as the JAX package, drops the running-statistics update
+        that forward makes: G's buffers are restored afterwards."""
+        if train_bn is None:
+            train_bn = self.cfg.train.sample_train_bn
+        z = self.fixed_noise if n is None else self.fixed_noise[:n]
+        kept = [b.clone() for b in self.gen.buffers()]
+        with torch.no_grad(), autocast(z, self.scfg.compute_dtype):
+            imgs = self.gen(z, train=train_bn)
+        with torch.no_grad():
+            for b, k in zip(self.gen.buffers(), kept):
+                b.copy_(k)
+        return imgs.to(torch.float32).permute(0, 2, 3, 1).cpu().numpy()

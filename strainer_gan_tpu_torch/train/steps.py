@@ -45,7 +45,9 @@ def step_config_from(cfg) -> StepConfig:
                       compute_dtype=cfg.model.compute_dtype)
 
 
-def _autocast(x: torch.Tensor, compute_dtype: str):
+def autocast(x: torch.Tensor, compute_dtype: str):
+    """bfloat16 autocast on the card when ``compute_dtype`` asks for it;
+    float32 elsewhere."""
     if compute_dtype == "bfloat16" and x.device.type == "cuda":
         return torch.autocast("cuda", dtype=torch.bfloat16)
     return contextlib.nullcontext()
@@ -69,7 +71,7 @@ def train_step(gen: torch.nn.Module, disc: torch.nn.Module,
         valid = torch.arange(b, device=dev) < lane_count
         valid_w = valid.to(torch.float32)
     real_t, fake_t = scfg.real_label, scfg.fake_label
-    amp = _autocast(x, scfg.compute_dtype)
+    amp = autocast(x, scfg.compute_dtype)
     set_lr(opt_g, lr_g)
     set_lr(opt_d, lr_d)
 

@@ -15,6 +15,9 @@ rounded, as its plain version's).  K3 decides ``d2 <= eps^2`` exactly, so it is
 held to a sandwich: the float64 plain version at eps^2 (1 - 1e-4) gives a
 lower bound of its counts and mask and at eps^2 (1 + 1e-4) an upper one,
 and where the two agree the kernel's counts equal the float64 counts.
+The band path (``strain/score.py::fused_percentile_refine``) on the card
+must give the float32 path's mask and threshold exactly, launching K1 for
+the bulk and again for the band.
 """
 import numpy as np
 import pytest
@@ -256,3 +259,40 @@ def test_dbscan_passes_small_and_overflowing_band(cuda_device, n, monkeypatch):
     lo = KP.dbscan_non_noise_plain(x64, eps * (1 - delta) ** 0.5, 3, valid)
     hi = KP.dbscan_non_noise_plain(x64, eps * (1 + delta) ** 0.5, 3, valid)
     assert not bool((lo & ~mask).any()) and not bool((mask & ~hi).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ratio,subset", [(0.2, False), (0.8, True), (1.0, False)])
+def test_band_path_equals_f32_on_the_card(cuda_device, ratio, subset):
+    from strainer_gan_tpu_torch.data import DeviceDataset
+    from strainer_gan_tpu_torch.data.mixers import Mixture
+    from strainer_gan_tpu_torch.models import Discriminator64, init_dcgan_weights
+    from strainer_gan_tpu_torch.strain import score as SC
+
+    n = 4096
+    rng = np.random.default_rng(3)
+    imgs = rng.integers(0, 256, (n, 64, 64, 3), np.uint8)
+    imgs[: n // 2, 16:48, 16:48] = 255
+    ds = DeviceDataset(Mixture(images=imgs, source_id=np.zeros((n,), np.int32),
+                               labels=np.zeros((n,), np.int64)), cuda_device)
+    disc = Discriminator64(16)
+    init_dcgan_weights(disc, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        disc.convs[-1].weight.mul_(1000.0)  # spread the losses: a band of a few percent
+    disc = disc.to(cuda_device)
+    keep = torch.ones(n, dtype=torch.bool, device=cuda_device)
+    if subset:
+        keep[::3] = False
+    sub = torch.nonzero(keep).flatten() if subset else None
+    losses = SC.score_d_losses(disc, ds, batch_size=512, subset=sub)
+    if subset:
+        losses = torch.full((n,), float("inf"), device=cuda_device).index_put_((sub,), losses)
+    want_mask, want_thr = TH.percentile_refine_mask(losses, ratio, valid=keep)
+    before = KB.bce_scores.launches
+    mask, thr, scores, stats = SC.fused_percentile_refine(disc, ds, ratio, keep,
+                                                          batch_size=512, subset=sub)
+    assert KB.bce_scores.launches - before >= 2
+    n_rescored, fell_back, drift = stats.tolist()
+    assert fell_back == 0.0 and drift > 0.0 and 0 < n_rescored < n // 4
+    assert torch.equal(mask, want_mask)
+    assert float(thr) == float(want_thr)
