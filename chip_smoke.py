@@ -19,7 +19,12 @@ script exits non-zero without printing its result line:
    ``tests/fixtures/torch_port_jax_masks.npz`` made again, and the card's
    max-|z| masks (fixed, elbow, quantile at the K3 clean ratio) and loss
    mask held to the JAX package's stored decisions, each flip printed with
-   its distance to the threshold; K3 (DBSCAN neighbour counts) on 40,000 x 512 clustered
+   its distance to the threshold; the same for the loss-space fixture
+   (``tests/fixtures/torch_port_jax_loss_masks.npz``: 40,000 bimodal
+   losses, AE-like errors and 128-lane score batches): the card's GMM and
+   ensemble masks and thresholds, their in-order truncations at 0.9 and
+   0.7, the IQR fence, the AE mask and the in-step quantile keeps; K3
+   (DBSCAN neighbour counts) on 40,000 x 512 clustered
    features, held to a float64 sandwich, its 3xTF32 d^2 error on sampled
    pairs held to its error band, the pairs it redecided in the band and
    its adjacency bitmask's size printed, and timed at 40,000 and at
@@ -42,12 +47,28 @@ script exits non-zero without printing its result line:
 5. zscore_dbscan: the ``zscore_dbscan`` preset at full width, batch 128, on
    its full synthetic mixture (40,000 images): the DBSCAN-calibrated
    z-score prefilter (K2, then K3 twice), then training.
-6. zscore_elbow and zscore: each preset up to its strain event.
-7. basic: one epoch through the command line, no strainer.
-8. zscore_loss: through the command line, epochs 0-3: the elbow prefilter
+6. loss_gmm, loss_ensemble, autoencoder: each preset at full width on the
+   first 16,384 images of the ``zscore_dbscan`` mixture already on the
+   card: every loss-space strain event launches K1, its GMM or ensemble
+   threshold agrees with the CPU plain path's on the same losses (1e-5
+   relative, flips counted with their distances), ``reset_each_epoch``
+   restores the full set; the AE trains at epoch 3 and its mask agrees
+   with the numpy oracle's (parity 1.0).  Seconds per strain event and
+   the AE's training seconds are printed.
+7. zscore_elbow and zscore: each preset up to its strain event.
+8. basic: one epoch through the command line, no strainer.
+9. zscore_loss: through the command line, epochs 0-3: the elbow prefilter
    (K2a, K2b) held to the numpy oracle's elbow mask (agreement >= 0.99, the
    repo's own bound), then the epoch-3 loss strain (K1) held to numpy's
    percentile, and the parity report at 1.0.
+10. batch_mask: through the command line with ``--epochs 11 --max-synth
+   4096 --parity-check``, across the gate epoch (10): the ``Filtered
+   CIFAR-10 images`` line equal to the epoch's counts, the last gated
+   step's kept and valid lanes, the parity report at 1.0, s/step ungated
+   and masked; then 20 steps each of the masked, unmasked and unshared
+   masked step timed (synchronised), and one ``obs/profiler.trace`` of 20
+   masked steps: device operations per step, the device-busy share of the
+   traced wall time and the ten operations with the most device time.
 
 Launch counters are zeroed right before each path is driven (``cli.run``,
 ``run()`` or ``setup()``) and read right after it.
@@ -65,6 +86,13 @@ Deviations from the presets, each for a reason:
 - ``basic``: ``--max-synth 2048`` and one epoch (it never strains).
 - ``zscore_loss``: ``--max-synth 2048`` per source and epochs 0-3 (its
   first loss strain is at epoch 3).
+- ``loss_gmm``, ``loss_ensemble``, ``autoencoder``: the first 16,384 of the
+  ``zscore_dbscan`` phase's 40,000 staged images (their own data
+  configuration, ``_CELEBA_CIFAR20K``), so nothing is staged twice; 2
+  epochs for ``loss_gmm`` (strains at 0 and 1), 4 for the others (first
+  strain at 3).
+- ``batch_mask``: ``--epochs 11`` (epoch 10 is the first gated one) and
+  ``--max-synth 4096`` (4,096 CelebA-like and 409 CIFAR-like images).
 
 The second-to-last lines are one JSON object of per-kernel results and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -72,7 +100,9 @@ card's ``nvidia-smi`` name and power limit; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import subprocess
 import sys
@@ -88,6 +118,10 @@ H100_3XTF32_FLOPS = 494.7e12 / 3  # float32 products as three TF32 products, pub
 PR5_KEPT = 21_275  # zscore_dbscan prefilter kept, with the direct-form K3 on the same data
 JAX_FIXTURE = HERE / "tests" / "fixtures" / "torch_port_jax_masks.npz"
 FIXTURE_SEED = 7
+JAX_LOSS_FIXTURE = HERE / "tests" / "fixtures" / "torch_port_jax_loss_masks.npz"
+LOSS_FIXTURE_SEED = 11
+LOSS_FIXTURE_TAIL = 77  # valid lanes of the fixture's partial score batch
+LOSS_FIXTURE_RATIOS = (0.9, 0.7)  # loss_ensemble's clean ratios at epochs 3 and 7
 FIXTURE_LOSS_RATIO = 0.8  # `final`'s clean-ratio schedule at epoch 3, passed as loss_ratio
 # logits where sigmoid saturates to 1, or its float32 value is subnormal and flushed to 0
 SATURATING_LOGITS = (30.0, -30.0, 120.0, -120.0, 99.5, -99.5, 87.5, -87.5,
@@ -122,6 +156,32 @@ def fixture_inputs(seed: int = FIXTURE_SEED) -> dict:
                              SATURATING_LOGITS])
     return dict(features=x.astype(np.float32), valid=rng.random(n) > 0.1,
                 logits=logits.astype(np.float32), loss_valid=rng.random(8192) > 0.1)
+
+
+def loss_fixture_inputs(seed: int = LOSS_FIXTURE_SEED) -> dict:
+    """The inputs of the committed loss-space JAX outputs, made with numpy
+    from ``seed``.
+
+    ``losses``: 40,000 float32 BCE-like losses, a clean log-normal mode
+    (80%, median 0.3) and a noisy one (20%, median 2.2), shuffled;
+    ``loss_valid``: about 90% of them.  ``ae_errors``: 16,384 float32
+    reconstruction errors (gamma, mean 0.04) with 2% of them tripled.
+    ``batch_scores``: two 128-lane batches of D probabilities in (0, 1), the
+    second one a partial tail whose first ``LOSS_FIXTURE_TAIL`` lanes are
+    valid.
+    """
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n, k = 40_000, 8_000
+    losses = np.concatenate([np.exp(rng.normal(np.log(0.3), 0.5, n - k)),
+                             np.exp(rng.normal(np.log(2.2), 0.4, k))])
+    rng.shuffle(losses)
+    ae = rng.gamma(4.0, 0.01, 16_384)
+    ae[rng.choice(ae.size, ae.size // 50, replace=False)] *= 3.0
+    scores = 1.0 / (1.0 + np.exp(-rng.normal(0.0, 2.0, (2, 128))))
+    return dict(losses=losses.astype(np.float32), loss_valid=rng.random(n) > 0.1,
+                ae_errors=ae.astype(np.float32), batch_scores=scores.astype(np.float32))
 
 
 def input_digests(inputs: dict) -> dict:
@@ -865,7 +925,7 @@ def zscore_dbscan_phase(torch, np):
         phase("zscore_dbscan", f"epoch {e}: {o['steps']} steps in {train_s:.3f} s, "
               f"{train_s / max(o['steps'], 1):.5f} s/step")
     phase("zscore_dbscan", f"kernels {json.dumps(launches)}")
-    return launches
+    return launches, tr.dataset
 
 
 def zscore_short_phases(torch, np):
@@ -900,6 +960,305 @@ def zscore_short_phases(torch, np):
               f"at threshold {float(tr.engine.last_threshold):.6g}; {len(out)} epochs, "
               f"{steps} steps, {seconds:.2f} s in all; kernels {json.dumps(launches)}")
 
+def loss_fixture_phase(torch, np):
+    """The card's loss-space, AE and in-step decisions against the JAX
+    package's, on the inputs of ``JAX_LOSS_FIXTURE`` (written on the CPU by
+    tests/test_torch_jax_loss_fixture.py): the GMM and ensemble masks, with
+    and without ``valid``, within 1e-5 (relative) of the JAX thresholds and
+    every flip within 1e-5 of it; the IQR fence, the in-step quantiles and
+    the truncation counts exactly; the AE mask within 1e-6."""
+    from strainer_gan_tpu_torch.ops import stats as S
+    from strainer_gan_tpu_torch.strain import engine as E, thresholds as TH
+
+    with np.load(JAX_LOSS_FIXTURE) as z:
+        ref = {k: z[k] for k in z.files}
+    inputs = loss_fixture_inputs()
+    for k, digest in input_digests(inputs).items():
+        check(str(ref[f"sha256_{k}"]) == digest, f"loss fixture input {k} is not the one stored")
+    dev = torch.device("cuda")
+
+    def flips(key, mask, thr, scores, rel):
+        """``mask`` against the stored one: its threshold's distance to JAX's
+        and each flipped lane's distance to JAX's threshold, relative."""
+        want = float(ref[key.replace("_", "_thr_", 1) if "_" in key else key + "_thr"])
+        d_thr = abs(float(thr) - want) / abs(want)
+        check(d_thr <= rel, f"{key}: threshold {float(thr)!r} is {d_thr:.3g} from JAX's {want!r}")
+        diff = mask.cpu().numpy() != ref[key]
+        dist = np.abs(scores[diff].astype(np.float64) - want) / abs(want)
+        worst = float(dist.max()) if diff.any() else 0.0
+        check(worst <= rel, f"{key}: a flip lies {worst:.3g} from the JAX threshold")
+        return (f"{key} {int(diff.sum())} flips"
+                + (f" (at {', '.join(f'{x:.2g}' for x in dist)})" if diff.any() else "")
+                + f", threshold {float(thr):.9g} (JAX {want:.9g})")
+
+    x = torch.from_numpy(inputs["losses"]).to(dev)
+    parts = []
+    for m in ("all", "valid"):
+        v = torch.from_numpy(inputs["loss_valid"]).to(dev) if m == "valid" else None
+        for name, fn in (("gmm", TH.gmm_mask), ("ensemble", TH.ensemble_mask)):
+            mask, thr = fn(x, v)
+            parts.append(flips(f"{name}_{m}", mask, thr, inputs["losses"], 1e-5))
+            if name == "ensemble" and m == "all":
+                for r in LOSS_FIXTURE_RATIOS:
+                    count = E.keep_count(mask, r)
+                    kept = E._truncate_in_order(mask, count).cpu().numpy()
+                    check(int(count) == int(ref[f"trunc_count_{r}"]),
+                          f"truncation count at {r}: {int(count)} vs JAX "
+                          f"{int(ref[f'trunc_count_{r}'])}")
+                    n_flip = int((kept != ref[f"trunc_{r}"]).sum())
+                    parts.append(f"truncation at {r}: keeps {int(count)}, {n_flip} flips")
+        iqr = S.iqr_threshold(x, v).cpu().numpy()
+        check(iqr.tobytes() == ref[f"iqr_{m}"].tobytes(), f"IQR fence ({m}) {iqr} vs JAX")
+    mask, thr = TH.ae_error_mask(torch.from_numpy(inputs["ae_errors"]).to(dev), 2.0)
+    parts.append(flips("ae", mask, thr, inputs["ae_errors"], 1e-6))
+    full, tail = (torch.from_numpy(b).to(dev) for b in inputs["batch_scores"])
+    valid = torch.arange(tail.shape[0], device=dev) < LOSS_FIXTURE_TAIL
+    thr_full, thr_tail = S.quantile(full, 0.1), S.masked_quantile(tail, valid, 0.1)
+    for key, thr, keep in (("full", thr_full, full >= thr_full),
+                           ("tail", thr_tail, (tail >= thr_tail) & valid)):
+        check(thr.cpu().numpy().tobytes() == ref[f"keep_thr_{key}"].tobytes()
+              and np.array_equal(keep.cpu().numpy(), ref[f"keep_{key}"]),
+              f"in-step keep ({key}) differs from JAX's")
+    phase("jax_fixture", "loss space on the card: " + "; ".join(parts)
+          + "; IQR fences and in-step quantile keeps (full, 77-lane tail) bit-equal")
+
+
+class Tee(io.TextIOBase):
+    """Writes to a stream and keeps a copy."""
+
+    def __init__(self, stream):
+        self.stream, self.copy = stream, io.StringIO()
+
+    def write(self, text):
+        self.copy.write(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+
+def batch_mask_phase(torch, np):
+    """``batch_mask`` through the command line across its gate epoch, then
+    timed and traced steps of the masked step."""
+    from strainer_gan_tpu_torch import cli, get_preset, kernels
+    from strainer_gan_tpu_torch.data import normalize_u8
+    from strainer_gan_tpu_torch.obs import profiler
+    from strainer_gan_tpu_torch.train.steps import train_step
+
+    args = ["--preset", "batch_mask", "--epochs", "11", "--max-synth", "4096", "--parity-check"]
+    phase("batch_mask", "python -m strainer_gan_tpu_torch.cli " + " ".join(args))
+    tee = Tee(sys.stdout)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        tr, results = cli.run(args)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    cfg = tr.cfg
+    shipped = get_preset("batch_mask")
+    check(cfg == shipped.replace(train=dataclasses.replace(shipped.train, epochs=11)),
+          "the batch_mask preset was changed beyond --epochs")
+    gate = cfg.strain.mask_start_epoch
+    n_contam = int((tr.dataset.source_id != 0).sum())
+    res = tr.epoch_results
+    check(len(res) == 11 and all(r["total_contam"] == 0 for r in res[:gate]),
+          "contamination counted before the gate epoch")
+    r = res[gate]
+    lines = [ln for ln in tee.copy.getvalue().splitlines() if "Filtered CIFAR-10" in ln]
+    want = f"Epoch {gate}: Filtered CIFAR-10 images: {r['filtered_contam']}/{r['total_contam']}"
+    check(lines == [want], f"contamination lines {lines}, want [{want!r}]")
+    check(r["total_contam"] == n_contam and 0 <= r["filtered_contam"] <= n_contam,
+          f"epoch {gate} counted {r['total_contam']} contaminants of {n_contam}")
+    eng = tr.engine
+    kept, nv = int(eng.last_batch_mask.sum()), eng.last_batch_valid
+    check(0 < kept < nv and not bool(eng.last_batch_mask[nv:].any()),
+          f"the last gated step kept {kept} of {nv} valid lanes")
+    parity = results.get("parity", {})
+    check(parity.get("method") == "batch_quantile_mask" and parity.get("agreement") == 1.0,
+          f"parity report {parity}")
+    losses = tr.logger.D_losses + tr.logger.G_losses
+    check(np.all(np.isfinite(losses)), "batch_mask: non-finite losses")
+    per_epoch = epoch_step_times(tr, cfg.data.batch_size)
+    ungated = [t for ts in per_epoch[1:gate] for t in ts]
+    phase("batch_mask", f"{tr.dataset.n} images ({n_contam} CIFAR-like), G/D at nz="
+          f"{cfg.model.nz} ngf={cfg.model.ngf} ndf={cfg.model.ndf}, {cfg.model.compute_dtype}, "
+          f"batch {cfg.data.batch_size}, mask_quantile {cfg.strain.mask_quantile} from epoch "
+          f"{gate}; whole CLI run {total:.2f} s; {want}; the last gated step kept {kept} of "
+          f"{nv} valid lanes; parity {json.dumps(parity)}; kernels {json.dumps(launches)}")
+    phase("batch_mask", f"s/step (host clock between step logs): ungated epochs 1-{gate - 1} "
+          f"{sum(ungated) / len(ungated):.5f} over {len(ungated)} steps; epoch {gate} (masked) "
+          f"{sum(per_epoch[gate]) / len(per_epoch[gate]):.5f} over {len(per_epoch[gate])} "
+          f"steps; epoch 0 {sum(per_epoch[0]) / len(per_epoch[0]):.5f}")
+
+    # ---- the step alone: timed (synchronised) and traced
+    ds, bs, nz = tr.dataset, cfg.data.batch_size, cfg.model.nz
+    idx = tr.epoch_indices(11, torch.ones((ds.n,), dtype=torch.bool, device="cuda"), 24)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    lr = cfg.train.lr_d
+    d_train = not eng.d_bn_eval
+
+    def run_steps(k, **kw):
+        for i in range(k):
+            ids = idx[i % idx.shape[0]]
+            train_step(tr.gen, tr.disc, tr.opt_g, tr.opt_d, normalize_u8(ds.gather(ids)),
+                       ds.source_id[ids], torch.randn((bs, nz), generator=g, device="cuda"),
+                       lr, lr, tr.scfg, d_train=d_train, **kw)
+
+    def ms_per_step(**kw):
+        run_steps(3, **kw)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run_steps(20, **kw)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / 20 * 1e3
+
+    variants = (("masked", dict(mask_on=True)), ("unmasked", {}),
+                ("masked without stem sharing", dict(mask_on=True, stem_share=False)),
+                ("masked", dict(mask_on=True)))
+    times = [(label, ms_per_step(**kw)) for label, kw in variants]
+    phase("batch_mask", "ms/step, 20 steps each, synchronised, in this order: "
+          + ", ".join(f"{label} {t:.3f}" for label, t in times))
+    with tempfile.TemporaryDirectory() as log_dir:
+        t = time.perf_counter()
+        with profiler.trace(log_dir) as prof:
+            run_steps(20, mask_on=True)
+        traced = time.perf_counter() - t
+        summary = profiler.summarize(prof, steps=20)
+        size = (Path(log_dir) / "trace.json").stat().st_size
+    check(summary["device_busy_ms"] > 0, "the trace holds no device time")
+    phase("batch_mask", f"trace of 20 masked steps ({traced:.2f} s traced, Chrome trace "
+          f"{size / 1e6:.1f} MB, not kept): {summary['launches_per_step']:.1f} device "
+          f"operations per step; device busy {summary['device_busy_ms']:.2f} ms of "
+          f"{summary['wall_ms']:.2f} ms traced ({summary['busy_share']:.3f}); busy per step "
+          f"{summary['device_busy_ms'] / 20:.3f} ms")
+    for op in summary["top"]:
+        phase("batch_mask", f"  {op['ms']:9.3f} ms  x{op['count']:5d}  {op['name'][:110]}")
+
+
+def gmm_sensitivity(GM, fit) -> float:
+    """The GMM threshold's largest relative move when one of the fitted
+    means or variances moves by 1e-6 (relative)."""
+    base = float(GM.gaussian_intersection_threshold(fit))
+    worst = 0.0
+    for field in ("means", "vars"):
+        for i in range(2):
+            for sign in (1.0, -1.0):
+                t = getattr(fit, field).clone()
+                t[i] = t[i] * (1.0 + sign * 1e-6)
+                moved = float(GM.gaussian_intersection_threshold(fit._replace(**{field: t})))
+                worst = max(worst, abs(moved - base) / abs(base))
+    return worst
+
+
+def loss_space_phases(torch, np, staged):
+    """``loss_gmm``, ``loss_ensemble`` and ``autoencoder`` at full width on the
+    first 16,384 images of the ``zscore_dbscan`` phase's staged mixture (the
+    presets' own data configuration), viewed on the card, not staged again."""
+    from strainer_gan_tpu_torch import get_preset, kernels
+    from strainer_gan_tpu_torch.ops import gmm as GM
+    from strainer_gan_tpu_torch.parity.agreement import agreement_report
+    from strainer_gan_tpu_torch.strain import engine as E, thresholds as TH
+    from strainer_gan_tpu_torch.train.loop import Trainer
+    from strainer_gan_tpu_torch.train.schedules import clean_ratio_at
+
+    ds = staged.head(16_384)
+    for name, epochs in (("loss_gmm", 2), ("loss_ensemble", 4), ("autoencoder", 4)):
+        cfg = get_preset(name)
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train, epochs=epochs))
+        sc = cfg.strain
+        tr = Trainer(cfg, dataset=ds)
+        eng = tr.engine
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        tr.setup()
+        events = []
+        for e in range(epochs):
+            k1 = kernels.launch_counts()["bce_scores"]
+            out = tr.run_epoch(e)
+            k1 = kernels.launch_counts()["bce_scores"] - k1
+            check(eng.active is eng.base_active and bool(eng.active.all()),
+                  f"{name}: reset_each_epoch did not restore the full set after epoch {e}")
+            if e < sc.start_epoch:
+                check(tr.mask_history[e].all(), f"{name}: strained before epoch {sc.start_epoch}")
+                continue
+            mask = tr.mask_history[e]
+            text = (f"epoch {e}: kept {int(mask.sum())}/{ds.n} at {float(eng.last_threshold):.8g}"
+                    f" in {out['strain_seconds']:.3f} s (strain event), {out['steps']} steps in "
+                    f"{out['seconds'] - out['strain_seconds']:.3f} s")
+            if name != "autoencoder":
+                check(k1 >= 1, f"{name}: K1 not launched in the epoch-{e} strain event")
+                # the card's threshold and mask against the CPU plain path on
+                # the same losses, unless the fit is degenerate: D's losses
+                # all near one value (an untrained D scores every image near
+                # log 2) give two coinciding components, whose intersection
+                # is a ratio of rounding errors on any device
+                fit = GM.fit_gmm2(eng.last_scores)
+                gap = float((fit.means[1] - fit.means[0]).abs() / fit.vars.max().sqrt())
+                if gap < 1e-3:
+                    check(name == "loss_ensemble" or np.array_equal(
+                        mask, (eng.last_scores < eng.last_threshold).cpu().numpy()),
+                        f"{name} epoch {e}: the mask is not loss < threshold")
+                    events.append(text + f"; K1 launched {k1}; the GMM's components coincide "
+                                  f"(means {gap:.2g} std apart): its threshold is not compared "
+                                  "with the CPU's")
+                    check(k1 >= 1, f"{name}: K1 not launched in the epoch-{e} strain event")
+                    continue
+                cpu = eng.last_scores.cpu()
+                fn = TH.gmm_mask if name == "loss_gmm" else TH.ensemble_mask
+                c_mask, c_thr = fn(cpu)
+                g_mask, g_thr = fn(eng.last_scores)
+                # the EM on both devices: its parameters agree to the rounding
+                # of 16,384-term sums, and the intersection inherits their
+                # condition: the tolerance is 1e-5 (relative) or 100 times the
+                # threshold's move when one fitted mean or variance moves by
+                # 1e-6 (relative), whichever is larger
+                fit_c = GM.fit_gmm2(cpu)
+                p_rel = max(float(((a.cpu() - b).abs() / b.abs()).max())
+                            for a, b in zip(fit, fit_c))
+                kappa = gmm_sensitivity(GM, fit_c)
+                tol = max(1e-5, 100 * kappa) if name == "loss_gmm" else 1e-5
+                rel = abs(float(g_thr) - float(c_thr)) / abs(float(c_thr))
+                check(rel <= tol, f"{name} epoch {e}: card threshold {float(g_thr)!r} vs the "
+                      f"CPU's {float(c_thr)!r}: {rel:.3g} (relative) against {tol:.3g}")
+                lo, hi = sorted((float(g_thr), float(c_thr)))
+                flipped = (g_mask.cpu() != c_mask).numpy()
+                f_loss = cpu.numpy()[flipped].astype(np.float64)
+                check(bool(np.all((f_loss >= lo) & (f_loss <= hi))),
+                      f"{name} epoch {e}: a flip lies outside the two thresholds")
+                if name == "loss_ensemble":
+                    ratio = clean_ratio_at(e, sc.clean_ratio_schedule)
+                    c_mask = E._truncate_in_order(c_mask, E.keep_count(c_mask, ratio))
+                check(np.array_equal(mask, c_mask.numpy()) or flipped.any(),
+                      f"{name} epoch {e}: the strain mask is not the CPU path's")
+                dist = np.abs(f_loss - float(c_thr)) / abs(float(c_thr))
+                text += (f"; K1 launched {k1}; GMM parameters within {p_rel:.2g} of the CPU "
+                         f"fit's; threshold {float(g_thr):.8g} vs the CPU plain path's "
+                         f"{float(c_thr):.8g} (relative {rel:.2g}, tolerance {tol:.2g}; the GMM "
+                         f"threshold moves {kappa:.2g} for 1e-6 in a parameter), "
+                         f"{int(flipped.sum())} flips"
+                         + (f" at {', '.join(f'{x:.2g}' for x in dist[:8])}"
+                            + (f", ... up to {float(dist.max()):.2g}" if dist.size > 8 else "")
+                            + " (relative to the CPU threshold, all between the two)"
+                            if flipped.any() else ""))
+            events.append(text)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        check(events, f"{name}: no strain event")
+        extra = ""
+        if name == "autoencoder":
+            report = agreement_report(tr, epoch=epochs - 1)
+            check(report.get("agreement") == 1.0, f"autoencoder parity report {report}")
+            extra = (f"; AE trained in {eng.ae_train_seconds:.3f} s ({sc.ae_train_epochs} "
+                     f"epochs); parity against the numpy oracle {json.dumps(report)}")
+        else:
+            check(launches["bce_scores"] >= len(events), f"{name}: K1 launches {launches}")
+        check(np.all(np.isfinite(tr.logger.D_losses)), f"{name}: non-finite losses")
+        phase(name, f"{ds.n} images (the first 16,384 of zscore_dbscan's mixture), "
+              f"{epochs} epochs in {seconds:.2f} s; " + "; ".join(events) + extra
+              + f"; kernels {json.dumps(launches)}")
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -931,6 +1290,7 @@ def main() -> int:
 
     results = kernel_phase(torch, port)
     jax_fixture_phase(torch, np)
+    loss_fixture_phase(torch, np)
     k3 = k3_phase(torch)
     with tempfile.TemporaryDirectory() as tmp:
         tr, launches = slice_phase(torch, np, Path(tmp))
@@ -938,11 +1298,15 @@ def main() -> int:
     del tr
     for r in results:
         r["launches"] = launches[r["name"]]
-    k3["launches"] = zscore_dbscan_phase(torch, np)["neighbor_counts"]
+    dbscan_launches, staged = zscore_dbscan_phase(torch, np)
+    k3["launches"] = dbscan_launches["neighbor_counts"]
     results.append(k3)
+    loss_space_phases(torch, np, staged)
+    del staged
     zscore_short_phases(torch, np)
     basic_phase(torch, np)
     zscore_loss_phase(torch, np)
+    batch_mask_phase(torch, np)
     phase("total", f"{time.perf_counter() - t_start:.1f} s from start to here")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

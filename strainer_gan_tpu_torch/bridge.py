@@ -6,7 +6,8 @@ so this module needs no JAX.  flax conv kernels are HWIO: a conv maps to
 torch's (out, in, kh, kw), a transposed conv to (in, out, kh, kw)
 (`tests/test_models_parity.py:56-81`).  BatchNorm ``scale``/``bias`` map to
 ``weight``/``bias`` and ``batch_stats`` ``mean``/``var`` to
-``running_mean``/``running_var``.
+``running_mean``/``running_var``.  The autoencoder's convolutions carry
+biases: flax ``bias`` maps to ``bias`` (`tests/test_models_parity.py:197`).
 """
 from __future__ import annotations
 
@@ -15,13 +16,25 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 import torch
 
+from .models.autoencoder import ConvAutoEncoder
 from .models.dcgan import Generator64
 
 # (torch name, flax collection, flax path, layout)
 Entry = Tuple[str, str, Tuple[str, ...], str]
 
 
-def _dcgan_entries(module: torch.nn.Module) -> Iterator[Entry]:
+def _ae_entries(module: ConvAutoEncoder) -> Iterator[Entry]:
+    for names, flax, layout in (("convs", "Conv2dTorch", "conv"),
+                                ("deconvs", "ConvTranspose2dTorch", "convT")):
+        for i in range(len(getattr(module, names))):
+            yield f"{names}.{i}.weight", "params", (f"{flax}_{i}", "kernel"), layout
+            yield f"{names}.{i}.bias", "params", (f"{flax}_{i}", "bias"), "vec"
+
+
+def _entries(module: torch.nn.Module) -> Iterator[Entry]:
+    if isinstance(module, ConvAutoEncoder):
+        yield from _ae_entries(module)
+        return
     conv = "ConvTranspose2dTorch" if isinstance(module, Generator64) else "Conv2dTorch"
     layout = "convT" if isinstance(module, Generator64) else "conv"
     for i in range(len(module.convs)):
@@ -63,13 +76,16 @@ def _put(tree: Dict, path, value) -> None:
     tree[path[-1]] = value
 
 
-def load_dcgan_from_flax(module: torch.nn.Module, params, batch_stats) -> torch.nn.Module:
-    """Copy a flax Generator64/Discriminator64's variables into ``module``."""
+def load_dcgan_from_flax(module: torch.nn.Module, params, batch_stats=None) -> torch.nn.Module:
+    """Copy a flax Generator64/Discriminator64's (or ConvAutoEncoder's)
+    variables into ``module``; without ``batch_stats`` the BatchNorm
+    running statistics stay as they are."""
     trees = {"params": params, "batch_stats": batch_stats}
     sd = module.state_dict()
     with torch.no_grad():
-        for name, coll, path, layout in _dcgan_entries(module):
-            sd[name].copy_(torch.tensor(_to_torch(_get(trees[coll], path), layout)))
+        for name, coll, path, layout in _entries(module):
+            if trees[coll] is not None:
+                sd[name].copy_(torch.tensor(_to_torch(_get(trees[coll], path), layout)))
     return module
 
 
@@ -77,7 +93,7 @@ def dcgan_to_flax(module: torch.nn.Module) -> Dict[str, Dict]:
     """``{"params": ..., "batch_stats": ...}`` of ``module`` in the flax layout."""
     out = {"params": {}, "batch_stats": {}}
     sd = module.state_dict()
-    for name, coll, path, layout in _dcgan_entries(module):
+    for name, coll, path, layout in _entries(module):
         _put(out[coll], path, _to_flax(sd[name].detach().cpu().numpy(), layout))
     return out
 
@@ -88,13 +104,28 @@ def adam_moments_to_flax(module: torch.nn.Module, opt: torch.optim.Optimizer
     ``ScaleByAdamState`` over the flax params."""
     params = dict(module.named_parameters())
     mu, nu = {}, {}
-    for name, coll, path, layout in _dcgan_entries(module):
+    for name, coll, path, layout in _entries(module):
         if coll != "params":
             continue
         st = opt.state[params[name]]
         _put(mu, path, _to_flax(st["exp_avg"].cpu().numpy(), layout))
         _put(nu, path, _to_flax(st["exp_avg_sq"].cpu().numpy(), layout))
     return mu, nu
+
+
+def load_adam_from_flax(module: torch.nn.Module, opt: torch.optim.Optimizer, mu, nu,
+                        count: int) -> None:
+    """Set a torch Adam over ``module`` to optax's ``ScaleByAdamState``
+    (``mu``, ``nu`` over the flax params, ``count`` steps taken)."""
+    params = dict(module.named_parameters())
+    with torch.no_grad():
+        for name, coll, path, layout in _entries(module):
+            if coll != "params":
+                continue
+            st = opt.state[params[name]]
+            st["step"] = torch.tensor(float(count))
+            st["exp_avg"] = torch.tensor(_to_torch(_get(mu, path), layout)).to(params[name])
+            st["exp_avg_sq"] = torch.tensor(_to_torch(_get(nu, path), layout)).to(params[name])
 
 
 def resnet18_name_map() -> Iterator[Tuple[Tuple[str, ...], str, str]]:

@@ -3,8 +3,9 @@
 The JAX package's layout and semantics, with ``torch.save`` in place of
 orbax: under the checkpoint directory, ``epoch_N/state.pt`` holds G and D
 (parameters and BatchNorm buffers), both Adam states, the strain masks
-(``active``, ``base_active``, ``last_mask``), the last strain's scores and
-the Trainer's ``torch.Generator`` state (the JAX package stores its PRNG
+(``active``, ``base_active``, ``last_mask``), the last strain's scores, the
+autoencoder strainer's weights once trained (``ae``) and the Trainer's
+``torch.Generator`` state (the JAX package stores its PRNG
 key); ``config.json`` the config; ``meta_epoch_N.json`` that epoch's
 metadata (``d_bn_eval``, ``iters``, ``band_cooloff``, ...), with the same
 keys as the JAX package's; ``meta.json`` the latest epoch's.  Enough to
@@ -36,6 +37,10 @@ def save_checkpoint(path: str, trainer, epoch: int) -> str:
     if eng.last_scores is not None:
         # the decision's evidence, for a resumed --parity-check
         payload["last_scores"] = eng.last_scores
+    if eng.ae is not None:
+        # the AE trains once, at ae_train_epoch: a resume past it without
+        # these weights would never strain again
+        payload["ae"] = eng.ae.state_dict()
     os.makedirs(os.path.join(path, f"epoch_{epoch}"), exist_ok=True)
     torch.save(payload, os.path.join(path, f"epoch_{epoch}", "state.pt"))
     with open(os.path.join(path, "config.json"), "w") as f:
@@ -44,7 +49,7 @@ def save_checkpoint(path: str, trainer, epoch: int) -> str:
         epoch=epoch,
         d_bn_eval=eng.d_bn_eval,
         iters=trainer._iters,
-        has_ae=False,  # the autoencoder strainer is not ported
+        has_ae=eng.ae is not None,
         has_last_mask=eng.last_mask is not None,
         has_last_scores=eng.last_scores is not None,
         last_threshold=None if eng.last_threshold is None else float(eng.last_threshold),
@@ -83,6 +88,9 @@ def restore_checkpoint(path: str, trainer, epoch: Optional[int] = None) -> int:
     eng.active = payload["active"]
     # rebuilds the compacted scoring subset of the base too
     eng._set_base(payload["base_active"])
+    if meta.get("has_ae"):
+        eng.ae = eng.build_ae()  # the module, around the saved weights
+        eng.ae.load_state_dict(payload["ae"])
     if meta.get("has_last_mask"):
         eng.last_mask = payload["last_mask"]
     if meta.get("has_last_scores"):

@@ -5,9 +5,12 @@ the same thing in both packages, with the same JSON form (a config written
 by either package loads in the other), and of the presets this port runs so
 far: the baselines ``basic`` and ``celeba`` (`strainer_gan_tpu/config.py:366-373`),
 ``final`` (`config.py:523-532`, `# final.py` live section), ``zscore_loss``
-(`config.py:455-464`) and the feature-space z-score family ``zscore``,
-``zscore_elbow`` and ``zscore_dbscan`` (`config.py:411-430`).  The other
-presets come with the slices that run them.
+(`config.py:455-464`), the feature-space z-score family ``zscore``,
+``zscore_elbow`` and ``zscore_dbscan`` (`config.py:411-430`), the
+``autoencoder`` and loss-space strainers ``loss_gmm`` and ``loss_ensemble``
+(`config.py:431-454`), and ``batch_mask``, the in-step quantile mask
+(`config.py:465-474`).  The other presets come with the slices that run
+them.
 """
 from __future__ import annotations
 
@@ -233,6 +236,37 @@ PRESETS: Dict[str, ExperimentConfig] = {
         data=_CELEBA_CIFAR20K,
         train=TrainConfig(epochs=10),
         strain=StrainConfig(method="zscore_dbscan", prefilter=True, strict_less=False),
+    ),
+    "autoencoder": ExperimentConfig(
+        name="autoencoder",  # `#autoencoder.py` — AE recon-error strain from epoch 3
+        data=_CELEBA_CIFAR20K,
+        train=TrainConfig(epochs=10),
+        strain=StrainConfig(method="autoencoder", start_epoch=3, every_epoch=True,
+                            reset_each_epoch=True, ae_sigma=2.0),
+    ),
+    "loss_gmm": ExperimentConfig(
+        name="loss_gmm",  # `#clean 분포...py` — GMM intersection, every epoch
+        data=_CELEBA_CIFAR20K,
+        train=TrainConfig(epochs=10),
+        strain=StrainConfig(method="loss_gmm", start_epoch=0, every_epoch=True,
+                            reset_each_epoch=True, bn_eval_after_score=True),
+    ),
+    "loss_ensemble": ExperimentConfig(
+        name="loss_ensemble",  # `# 종합 loss.py` — median{GMM,P75,IQR} + ratio schedule
+        data=_CELEBA_CIFAR20K,
+        train=TrainConfig(epochs=10, lr_decay_epoch=3),
+        strain=StrainConfig(method="loss_ensemble", start_epoch=3, every_epoch=True,
+                            reset_each_epoch=True,
+                            clean_ratio_schedule=((0, 1.0), (3, 0.9), (5, 0.8), (7, 0.7))),
+    ),
+    "batch_mask": ExperimentConfig(
+        name="batch_mask",  # `# 상위 10% loss값...X.py` — per-batch quantile mask
+        data=DataConfig(sources=(SourceSpec("celeba"),
+                                 SourceSpec("cifar10", fraction_of_primary=0.1)),
+                        mixer="labeled", drop_last=False),
+        train=TrainConfig(epochs=20),
+        strain=StrainConfig(method="batch_quantile_mask", mask_quantile=0.1,
+                            mask_start_epoch=10),
     ),
     "zscore_loss": ExperimentConfig(
         name="zscore_loss",  # `# z_score + loss.py` — z prefilter + loss refine

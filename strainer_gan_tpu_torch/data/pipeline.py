@@ -58,3 +58,11 @@ class DeviceDataset:
 
     def gather(self, idx: torch.Tensor) -> torch.Tensor:
         return self.images.index_select(0, idx)
+
+    def head(self, n: int) -> "DeviceDataset":
+        """The first ``n`` samples as views of this dataset's tensors on the
+        device: nothing is copied or staged again."""
+        out = object.__new__(DeviceDataset)
+        out.device, out.n = self.device, min(n, self.n)
+        out.images, out.source_id = self.images[:out.n], self.source_id[:out.n]
+        return out

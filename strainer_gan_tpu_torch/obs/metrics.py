@@ -3,7 +3,8 @@
 
 Keeps the reference's console formats: ``[e/E][i/I]\\tLoss_D: ...`` every
 ``log_every`` iterations (`#%basic.py:291-294`) and the strain report
-``Epoch N: Removed K outliers.`` (`#z_score.py:321`).  Loss histories stay
+``Epoch N: Removed K outliers.`` (`#z_score.py:321`), and the in-step
+mask's ``Epoch N: Filtered CIFAR-10 images: a/b`` (`# 상위 10%...X.py:335-337`).  Loss histories stay
 device tensors until first read, so collecting them never waits for the
 card; only a console print reads scalars back.  Step timings are the host's
 clock between consecutive ``log_step`` calls: once the launch queue is full
@@ -63,6 +64,10 @@ class MetricsLogger:
             f"Epoch {epoch}: Removed {removed} outliers. "
             f"{remaining} samples remaining.\n"
         )
+
+    def log_contamination(self, epoch: int, filtered: int, total: int) -> None:
+        # `# 상위 10%...X.py:335-337`
+        self.stream.write(f"Epoch {epoch}: Filtered CIFAR-10 images: {filtered}/{total}\n")
 
     def summary(self) -> Dict:
         """Steps, mean host seconds per step past the first two (warm-up),

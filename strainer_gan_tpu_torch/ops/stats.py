@@ -69,6 +69,13 @@ def quantile(x: torch.Tensor, q: Scalar) -> torch.Tensor:
     return torch.where(torch.isnan(x).any(), torch.full_like(out, float("nan")), out)
 
 
+def percentile(x: torch.Tensor, q: Scalar) -> torch.Tensor:
+    """``jnp.percentile(x, q, method="linear")`` (`ops/stats.py:52`,
+    `# final.py:361`): the quantile at ``q / 100`` (exact for the 25 and 75
+    the strainers ask for)."""
+    return quantile(x, q / 100.0)
+
+
 def interpolate_sorted(xs: torch.Tensor, n_valid: torch.Tensor,
                        q_percent: torch.Tensor) -> torch.Tensor:
     """The percentile of the ``n_valid`` smallest entries of the sorted
@@ -98,6 +105,28 @@ def masked_quantile(x: torch.Tensor, valid: torch.Tensor, q: Scalar) -> torch.Te
     (`ops/stats.py:95`): the percentile at ``q * 100``, in float32 where
     ``q`` is a tensor."""
     return masked_percentile(x, valid, q * 100.0)
+
+
+def iqr_threshold(x: torch.Tensor, valid=None) -> torch.Tensor:
+    """Q3 + 1.5 * IQR outlier fence (`ops/stats.py:99`, `# 종합 loss.py:290-294`),
+    over the ``valid`` entries when given."""
+    if valid is None:
+        q1, q3 = percentile(x, 25.0), percentile(x, 75.0)
+    else:
+        q1, q3 = masked_percentile(x, valid, 25.0), masked_percentile(x, valid, 75.0)
+    return q3 + 1.5 * (q3 - q1)
+
+
+def masked_mean_std(x: torch.Tensor, valid: torch.Tensor, bessel: bool = True):
+    """Mean and std over the ``valid`` entries (`ops/stats.py:159`);
+    ``bessel=True`` divides by n - 1, as ``torch.std`` does
+    (`#autoencoder.py:318`)."""
+    w = valid.to(x.dtype)
+    n = w.sum()
+    mean = (x * w).sum() / torch.clamp_min(n, 1.0)
+    denom = torch.clamp_min(n - 1.0, 1.0) if bessel else torch.clamp_min(n, 1.0)
+    var = (w * (x - mean) ** 2).sum() / denom
+    return mean, torch.sqrt(var)
 
 
 def histogram_density(x: torch.Tensor, bins: int = 100

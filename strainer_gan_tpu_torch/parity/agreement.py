@@ -7,6 +7,9 @@ the scores the engine decided on, and report the share of samples on which
 the two masks agree.  ``python -m strainer_gan_tpu_torch.cli ...
 --parity-check`` prints it.  Covers the methods the port runs; for any
 other method, and before the first strain event, the report is ``{}``.
+For ``batch_quantile_mask`` it recomputes the last step's in-step keep mask
+from the scores it was taken from, over that step's valid lanes.  The
+``loss_gmm`` and ``loss_ensemble`` oracles import sklearn.
 """
 from __future__ import annotations
 
@@ -28,6 +31,20 @@ def agreement_report(trainer, epoch: Optional[int] = None) -> Dict:
     eng = trainer.engine
     sc = trainer.cfg.strain
     method = sc.method
+    if method == "batch_quantile_mask":
+        # `# 상위 10%...X.py:283-284`: torch.quantile over the ACTUAL batch,
+        # which on a partial tail is its first ``last_batch_valid`` lanes
+        if eng.last_batch_scores is None or eng.last_batch_mask is None:
+            return {}
+        scores = _host(eng.last_batch_scores).astype(np.float64)
+        ours = _host(eng.last_batch_mask)
+        nv = eng.last_batch_valid
+        if nv is not None and nv < len(ours):
+            scores, ours = scores[:nv], ours[:nv]
+        want, _ = oracle.batch_quantile_keep(scores, sc.mask_quantile)
+        return dict(method=method, agreement=oracle.mask_agreement(ours, want),
+                    ours_kept=int(ours.sum()), oracle_kept=int(np.asarray(want).sum()),
+                    n=len(ours))
     if eng.last_scores is None or eng.last_mask is None or method == "none":
         return {}
 
@@ -63,6 +80,16 @@ def agreement_report(trainer, epoch: Optional[int] = None) -> Dict:
         sub_mask, _ = oracle.percentile_refine_mask(scores[base], lr_)
         want = np.zeros_like(ours)
         want[np.nonzero(base)[0][sub_mask]] = True
+    elif method == "loss_gmm":
+        want, _ = oracle.gmm_mask(scores, seed=0)
+    elif method == "loss_ensemble":
+        ratio = clean_ratio_at(epoch if epoch is not None else trainer.cfg.train.epochs - 1,
+                               sc.clean_ratio_schedule)
+        idx, _ = oracle.ensemble_truncated_indices(scores, ratio, seed=0)
+        want = np.zeros_like(ours)
+        want[idx] = True
+    elif method == "autoencoder":
+        want, _ = oracle.ae_error_mask(scores, sc.ae_sigma)
     else:
         return {}
     return dict(

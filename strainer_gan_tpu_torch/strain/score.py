@@ -9,8 +9,8 @@ same sample gets the same float32 score whichever pass scores it and in
 whichever batch: the band path's float32 re-scores equal the full float32
 pass's, bit for bit.
 
-Precision: strain decisions carry float32 rounding.  ``score_d_losses`` and
-``score_features`` run in float32 with TF32 off (``device.f32_math``);
+Precision: strain decisions carry float32 rounding.  ``score_d_losses``,
+``score_features`` and ``score_ae_errors`` run in float32 with TF32 off (``device.f32_math``);
 ``fused_percentile_refine`` scores the bulk in bfloat16 and re-scores in
 float32 every sample near the percentile threshold, which gives the same
 mask as the float32 pass.
@@ -25,6 +25,7 @@ from torch.func import functional_call
 from ..data.pipeline import DeviceDataset, normalize_u8
 from ..device import f32_math
 from ..kernels.bce import bce_scores
+from ..models.autoencoder import reconstruction_errors
 from ..ops import stats as S
 from . import thresholds as TH
 
@@ -95,6 +96,16 @@ def score_features(feature_fn: Callable[[torch.Tensor], torch.Tensor],
     feats = torch.empty((dataset.n, FEATURE_DIM), dtype=torch.float32,
                         device=dataset.device)
     return _batched(feature_fn, dataset, feats, batch_size, None)
+
+
+def score_ae_errors(ae: torch.nn.Module, dataset: DeviceDataset,
+                    batch_size: int = 512) -> torch.Tensor:
+    """(N,) float32 per-sample reconstruction MSE of every sample
+    (`score.py:371-394`, `#autoencoder.py:307-322`), in float32 with TF32
+    off: the errors decide the strain."""
+    errors = torch.empty((dataset.n,), dtype=torch.float32, device=dataset.device)
+    return _batched(lambda x: reconstruction_errors(ae(x), x), dataset, errors,
+                    batch_size, None)
 
 
 def band_capacity(m: int, batch_size: int, band_capacity_frac: float) -> int:

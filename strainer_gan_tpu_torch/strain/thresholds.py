@@ -1,6 +1,6 @@
 """Threshold selectors -> boolean keep-masks (counterpart of
-`strainer_gan_tpu/strain/thresholds.py`), the ones the ``final`` path and
-the z-score strainers run.
+`strainer_gan_tpu/strain/thresholds.py`): the z-score, loss-percentile,
+loss-space (GMM, ensemble) and autoencoder strainers'.
 
 Every function maps scores over the FULL dataset (plus an optional
 ``valid`` mask restricting the statistics to the active subset) to a keep
@@ -13,6 +13,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..kernels import zscore as KZ
+from ..ops import gmm as GM
 from ..ops import stats as S
 
 
@@ -106,3 +107,33 @@ def percentile_refine_mask(losses: torch.Tensor, loss_ratio: float,
     fallback = torch.logical_and(rank < half, valid)
     mask = torch.where(n_kept == 0, fallback, mask)
     return mask, thr
+
+
+def gmm_mask(losses: torch.Tensor, valid: Optional[torch.Tensor] = None):
+    """Keep ``loss < thr`` at the GMM intersection (`thresholds.py:101-106`,
+    `#clean 분포...py:289-316`)."""
+    thr = GM.gmm_threshold(losses, valid)
+    return _and_valid(losses < thr, valid), thr
+
+
+def ensemble_mask(losses: torch.Tensor, valid: Optional[torch.Tensor] = None):
+    """Keep ``loss < thr`` at the median of {GMM, P75, Q3 + 1.5 IQR}
+    (`thresholds.py:109-119`, `# 종합 loss.py:296-301`)."""
+    gmm_thr = GM.gmm_threshold(losses, valid)
+    if valid is None:
+        p75 = S.percentile(losses, 75.0)
+    else:
+        p75 = S.masked_percentile(losses, valid, 75.0)
+    thr = torch.median(torch.stack([gmm_thr, p75, S.iqr_threshold(losses, valid)]))
+    return _and_valid(losses < thr, valid), thr
+
+
+def ae_error_mask(errors: torch.Tensor, sigma: float = 2.0,
+                  valid: Optional[torch.Tensor] = None):
+    """Keep ``error < mean + sigma * std``, the std Bessel-corrected as
+    ``torch.std`` (`thresholds.py:166-175`, `#autoencoder.py:317-321`)."""
+    if valid is None:
+        valid = torch.ones(errors.shape, dtype=torch.bool, device=errors.device)
+    mean, std = S.masked_mean_std(errors, valid, bessel=True)
+    thr = mean + sigma * std
+    return _and_valid(errors < thr, valid), thr

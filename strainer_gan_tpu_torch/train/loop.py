@@ -7,8 +7,13 @@ drives the reference's per-epoch schedule (`# final.py:414-448`):
 prefilter -> [lr cut] -> [re-strain] -> batch loop.  One host fetch per
 strain event (active count, strain accounting and the band path's overflow
 flag) fixes the step count; the console prints every ``log_every`` steps,
-the fixed-noise grids every ``sample_every`` iterations and the epoch's
-per-sample loss history are the other host reads.
+the fixed-noise grids every ``sample_every`` iterations, the epoch's
+per-sample loss history and, on epochs of the in-step mask, one packed
+fetch of the contamination counters are the other host reads.
+
+``epoch_indices`` and ``step_noise`` draw an epoch's batch order and a
+step's noise from the Trainer's generator; a test may replace them on an
+instance to hand the port the JAX package's draws.
 
 ``kernel_launches`` holds how often each CUDA kernel wrapper launched
 during ``run()``.
@@ -69,6 +74,7 @@ class Trainer:
         self.mask_history: List[np.ndarray] = []
         self.img_list: List[np.ndarray] = []  # fixed-noise grids (`#%basic.py:226`)
         self.strain_quality: List[Dict] = []
+        self.epoch_results: List[Dict] = []  # run_epoch's dicts, in order
         self.kernel_launches: Dict[str, int] = {}
         self._iters = 0  # global training iterations so far
         self._stats = None  # (n_active, true-positive removals, n_contaminants)
@@ -111,9 +117,24 @@ class Trainer:
                 epoch=epoch, removed=removed, precision=strain_tp / removed,
                 recall=strain_tp / n_contam))
 
+    def epoch_indices(self, epoch: int, active: torch.Tensor, steps: int) -> torch.Tensor:
+        """(steps, batch_size) sample indices of ``epoch``."""
+        return epoch_batch_indices(active, steps, self.cfg.data.batch_size, generator=self.rng)
+
+    def step_noise(self, epoch: int, i: int) -> torch.Tensor:
+        """(batch_size, nz) noise of step ``i`` of ``epoch``."""
+        return torch.randn((self.cfg.data.batch_size, self.cfg.model.nz), generator=self.rng,
+                           device=self.device)
+
     def run_epoch(self, epoch: int) -> Dict:
-        cfg, t = self.cfg, self.cfg.train
+        cfg, s, t = self.cfg, self.cfg.strain, self.cfg.train
         t0 = time.perf_counter()
+        mask_on = s.method == "batch_quantile_mask" and epoch >= s.mask_start_epoch
+        if not mask_on:
+            # stale-state guard (`loop.py:337-346`): the parity report must
+            # not read an earlier gated epoch's in-step scores
+            eng = self.engine
+            eng.last_batch_scores = eng.last_batch_mask = eng.last_batch_valid = None
         prev_active = self.engine.active
         active = self.engine.on_epoch_start(epoch)
         if active is not prev_active:
@@ -137,22 +158,27 @@ class Trainer:
             self.logger.stream.write(
                 f"[strainer] WARNING epoch {epoch}: 0 full batches ({n_active} active "
                 f"samples < batch_size {bs}) — no training this epoch\n")
-        idx = epoch_batch_indices(active, steps, bs, generator=self.rng)
+        idx = self.epoch_indices(epoch, active, steps)
         d_train = not self.engine.d_bn_eval
         sampling = bool(t.sample_every)
         losses = []  # per-sample real losses of the epoch's steps, on the device
+        # contamination counters of the in-step mask, summed on the device
+        counters = torch.zeros((2,), dtype=torch.int64, device=self.device)
         metrics = None
+        lanes = None
         for i in range(steps):
             ids = idx[i]
             x = normalize_u8(self.dataset.gather(ids), torch.float32)
-            z = torch.randn((bs, cfg.model.nz), generator=self.rng, device=self.device)
+            z = self.step_noise(epoch, i)
             lanes = tail if (tail and i == steps - 1) else None
             metrics = train_step(
                 self.gen, self.disc, self.opt_g, self.opt_d, x,
                 self.dataset.source_id[ids], z, lr_g, lr_d, self.scfg, d_train=d_train,
-                lane_count=lanes,
+                lane_count=lanes, mask_on=mask_on,
             )
             self.logger.log_step(epoch, t.epochs, i, steps, metrics)
+            if mask_on:
+                counters += torch.stack([metrics["n_contam"], metrics["n_filtered_contam"]])
             losses.append(metrics["real_loss_per_sample"][:lanes])
             # a grid after every sample_every-th global iteration (`#%basic.py:300-304`)
             if sampling and (self._iters + i) % t.sample_every == 0:
@@ -163,6 +189,17 @@ class Trainer:
         if sampling and steps and epoch == t.epochs - 1 \
                 and (self._iters - 1) % t.sample_every != 0:
             self.img_list.append(self.sample())
+        total_contam = filtered_contam = 0
+        if mask_on:
+            # one host fetch per epoch for both sums (`loop.py:719-727`)
+            total_contam, filtered_contam = counters.tolist()
+            self.logger.log_contamination(epoch, filtered_contam, total_contam)
+            if metrics is not None:
+                # the last step's scores and mask for the parity report; a
+                # partial tail's valid lanes are its first ``lanes``
+                self.engine.last_batch_scores = metrics["score_probs"]
+                self.engine.last_batch_mask = metrics["keep_mask"]
+                self.engine.last_batch_valid = bs if lanes is None else lanes
         if losses:
             # the reference's per-epoch ``epoch_losses`` (`# 1,2,8.py:300-303`)
             self.epoch_loss_history.append(torch.cat(losses).cpu().numpy())
@@ -173,8 +210,11 @@ class Trainer:
         self.engine.on_epoch_end(epoch)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        return dict(steps=steps, active=n_active, lr_g=lr_g, lr_d=lr_d, last=metrics,
-                    seconds=time.perf_counter() - t0, strain_seconds=strain_seconds)
+        result = dict(steps=steps, active=n_active, lr_g=lr_g, lr_d=lr_d,
+                      filtered_contam=filtered_contam, total_contam=total_contam, last=metrics,
+                      seconds=time.perf_counter() - t0, strain_seconds=strain_seconds)
+        self.epoch_results.append(result)
+        return result
 
     def run(self, epochs: Optional[int] = None) -> List[Dict]:
         before = launch_counts()

@@ -17,7 +17,9 @@ lower bound of its counts and mask and at eps^2 (1 + 1e-4) an upper one,
 and where the two agree the kernel's counts equal the float64 counts.
 The band path (``strain/score.py::fused_percentile_refine``) on the card
 must give the float32 path's mask and threshold exactly, launching K1 for
-the bulk and again for the band.
+the bulk and again for the band.  The masked train step gives the same
+keep mask with and without stem sharing, and the GMM, ensemble and AE
+thresholds on the card agree with the CPU plain path's.
 """
 import numpy as np
 import pytest
@@ -296,3 +298,70 @@ def test_band_path_equals_f32_on_the_card(cuda_device, ratio, subset):
     assert fell_back == 0.0 and drift > 0.0 and 0 < n_rescored < n // 4
     assert torch.equal(mask, want_mask)
     assert float(thr) == float(want_thr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [None, 77])
+def test_masked_step_stem_sharing_on_the_card(cuda_device, lanes):
+    """The masked step with and without stem sharing, at full width in
+    float32: the scoring forward is the same computation either way, so the
+    keep mask and the scores are equal; the losses agree to 1e-4 (relative:
+    cuDNN may pick another algorithm for the real side's head when its
+    input carries a graph) and every parameter to 2 lr (Adam's first step
+    moves an element by lr whatever its gradient's size, so a gradient at
+    rounding level may move it either way).  TF32 off."""
+    from strainer_gan_tpu_torch import get_preset
+    from strainer_gan_tpu_torch.device import f32_math
+    from strainer_gan_tpu_torch.models import build_models
+    from strainer_gan_tpu_torch.train.state import make_optimizers
+    from strainer_gan_tpu_torch.train.steps import step_config_from, train_step
+
+    cfg = get_preset("batch_mask")
+    scfg = step_config_from(cfg)._replace(compute_dtype="float32")
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.rand((128, 3, 64, 64), generator=g, device=cuda_device) * 2 - 1
+    src = (torch.rand(128, generator=g, device=cuda_device) < 0.1).to(torch.int32)
+    z = torch.randn((128, 100), generator=g, device=cuda_device)
+    runs = []
+    for share in (True, False):
+        gen, disc = (m.to(cuda_device) for m in build_models(cfg.model, seed=1))
+        opt_g, opt_d = make_optimizers(cfg, gen, disc)
+        with f32_math():
+            m = train_step(gen, disc, opt_g, opt_d, x, src, z, 2e-4, 2e-4, scfg,
+                           lane_count=lanes, mask_on=True, stem_share=share)
+        runs.append((m, [p.detach() for p in list(gen.parameters()) + list(disc.parameters())]))
+    (ma, pa), (mb, pb) = runs
+    assert torch.equal(ma["keep_mask"], mb["keep_mask"])
+    assert torch.equal(ma["score_probs"], mb["score_probs"])
+    assert int(ma["keep_mask"].sum()) < (lanes or 128)
+    for k in ("errD", "errG", "D_x", "D_G_z1", "D_G_z2"):
+        assert abs(float(ma[k]) - float(mb[k])) <= 1e-4 * max(1.0, abs(float(mb[k]))), k
+    for a, b in zip(pa, pb):
+        assert float((a - b).abs().max()) <= 2 * 2e-4 * (1 + 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", ["all", "valid"])
+def test_loss_space_and_ae_thresholds_on_the_card(cuda_device, m):
+    """``gmm_mask``, ``ensemble_mask`` and ``ae_error_mask`` on the card
+    against the port's CPU plain path on the same inputs (the loss
+    fixture's): thresholds within 1e-5 (relative), any flipped decision
+    within 1e-5 (relative) of the CPU threshold."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    inp = smoke.loss_fixture_inputs()
+    cases = [(TH.gmm_mask, inp["losses"]), (TH.ensemble_mask, inp["losses"]),
+             (lambda e, v: TH.ae_error_mask(e, 2.0, v), inp["ae_errors"])]
+    for fn, scores in cases:
+        x = torch.from_numpy(scores)
+        v = torch.from_numpy(inp["loss_valid"][:x.shape[0]]) if m == "valid" else None
+        cpu_mask, cpu_thr = fn(x, v)
+        mask, thr = fn(x.to(cuda_device), None if v is None else v.to(cuda_device))
+        assert abs(float(thr) - float(cpu_thr)) <= 1e-5 * abs(float(cpu_thr))
+        flipped = mask.cpu() != cpu_mask
+        assert torch.all((x[flipped] - cpu_thr).abs() <= 1e-5 * abs(float(cpu_thr)))
