@@ -44,6 +44,19 @@ script exits non-zero without printing its result line:
    give the same mask (0 flips) and threshold.  Prints the band's statistics
    and K1's launches in the event, and times the band path against the f32
    path at the same N.
+   chunked (final): the same ``final`` run again at ``steps_per_dispatch=1``
+   (every step eager) from the same initial state and draws must equal the
+   CLI run (32 steps a CUDA graph replay) bit for bit: parameters,
+   BatchNorm buffers, Adam moments and step counts, loss series,
+   per-sample losses, masks, epoch results, grids and console text, across
+   the epoch-3 strain, its LR cut and the ``d_train`` flip; a Trainer
+   restored from epoch 1 trains epochs 2-3 through the executor to the same
+   epoch-3 mask and state; the host's time from the epoch-3 band scoring's
+   return to the end of ``_fetch_epoch_stats`` and to the first training
+   launch (the strain event's round trip).
+   serve: a ``Sampler`` from the run's checkpoint makes 256 images at batch
+   64 (a warm-up batch, then one graph replay a batch); replayed batches
+   equal eager ones on the same noise; latency a batch, replayed and eager.
 5. zscore_dbscan: the ``zscore_dbscan`` preset at full width, batch 128, on
    its full synthetic mixture (40,000 images): the DBSCAN-calibrated
    z-score prefilter (K2, then K3 twice), then training.
@@ -56,7 +69,8 @@ script exits non-zero without printing its result line:
    with the numpy oracle's (parity 1.0).  Seconds per strain event and
    the AE's training seconds are printed.
 7. zscore_elbow and zscore: each preset up to its strain event.
-8. basic: one epoch through the command line, no strainer.
+8. basic: one epoch through the command line, no strainer (4,480 images,
+   so that the epoch holds a full chunk).
 9. zscore_loss: through the command line, epochs 0-3: the elbow prefilter
    (K2a, K2b) held to the numpy oracle's elbow mask (agreement >= 0.99, the
    repo's own bound), then the epoch-3 loss strain (K1) held to numpy's
@@ -69,9 +83,19 @@ script exits non-zero without printing its result line:
    masked step timed (synchronised), and one ``obs/profiler.trace`` of 20
    masked steps: device operations per step, the device-busy share of the
    traced wall time and the ten operations with the most device time.
+   chunked (batch_mask): the preset on the same images with
+   ``mask_start_epoch=1``, 3 epochs at ``steps_per_dispatch`` 32 and 1,
+   bit-equal as above (with the contamination counters and the parity
+   report's last batch); then ms/step of replayed chunks against eager
+   steps, masked and unmasked (synchronised), and a replayed masked chunk's
+   device time (CUDA events) against its time through the executor, with a
+   trace of two replayed chunks.
 
-Launch counters are zeroed right before each path is driven (``cli.run``,
-``run()`` or ``setup()``) and read right after it.
+Every Trainer phase trains through the chunked executor as the presets ship
+it (``steps_per_dispatch=32``: one CUDA graph replay a full chunk), prints
+its graphs' capture and instantiation seconds and replays, and fails if no
+chunk was replayed.  Launch counters are zeroed right before each path is
+driven (``cli.run``, ``run()`` or ``setup()``) and read right after it.
 
 Deviations from the presets, each for a reason:
 - ``final``: ``--epochs 4`` (epoch 3 is the first strain event) and
@@ -83,16 +107,20 @@ Deviations from the presets, each for a reason:
   (its only strain event).
 - ``zscore``: ``max_synth=2048`` per source and epochs 0-3 (its one strain
   is at epoch 3).
-- ``basic``: ``--max-synth 2048`` and one epoch (it never strains).
-- ``zscore_loss``: ``--max-synth 2048`` per source and epochs 0-3 (its
-  first loss strain is at epoch 3).
+- ``basic``: ``--max-synth 4480`` and one epoch (it never strains; 35
+  steps: a sample-point step, a warm-up step and one chunk of 32).
+- ``zscore_loss``: ``--max-synth 2560`` per source and epochs 0-3 (its
+  first loss strain is at epoch 3; about 36 steps an epoch, so that an
+  epoch holds a chunk).
 - ``loss_gmm``, ``loss_ensemble``, ``autoencoder``: the first 16,384 of the
   ``zscore_dbscan`` phase's 40,000 staged images (their own data
   configuration, ``_CELEBA_CIFAR20K``), so nothing is staged twice; 2
   epochs for ``loss_gmm`` (strains at 0 and 1), 4 for the others (first
   strain at 3).
 - ``batch_mask``: ``--epochs 11`` (epoch 10 is the first gated one) and
-  ``--max-synth 4096`` (4,096 CelebA-like and 409 CIFAR-like images).
+  ``--max-synth 4096`` (4,096 CelebA-like and 409 CIFAR-like images); in
+  the chunked phase ``mask_start_epoch=1`` and 3 epochs on the same images
+  (the gate within 3 epochs, for a run made twice).
 
 The second-to-last lines are one JSON object of per-kernel results and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -104,6 +132,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -198,6 +227,19 @@ def check(cond: bool, msg: str) -> None:
 
 def phase(name: str, text: str) -> None:
     print(f"[{name}] {text}", flush=True)
+
+
+CARD = "unknown"  # nvidia-smi's "name, power.limit", set in main()
+
+
+def graphs(tr, name: str) -> str:
+    """The Trainer's CUDA graph counts as text; a phase that trained must
+    have replayed at least one chunk."""
+    gs = tr.graph_stats
+    check(gs["replays"] > 0, f"{name}: no chunk was replayed from a CUDA graph")
+    cap = ", ".join(f"{c:.2f}+{i:.2f}" for c, i in zip(gs["capture_s"], gs["instantiate_s"]))
+    return (f"graphs: {gs['captures']} captured (capture+instantiate s: {cap}), "
+            f"{gs['replays']} chunks of {tr.cfg.train.steps_per_dispatch} replayed")
 
 
 def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
@@ -615,13 +657,16 @@ def epoch_step_times(tr, bs: int) -> list:
 def slice_phase(torch, np, out_dir: Path):
     """``final`` as shipped, through the port's command line."""
     from strainer_gan_tpu_torch import cli, get_preset, kernels
+    from strainer_gan_tpu_torch.train.state import get_lr
 
     args = ["--preset", "final", "--epochs", "4", "--max-synth", "8192", "--out", str(out_dir),
             "--checkpoint-every", "1", "--save-samples-every", "2", "--parity-check"]
     phase("slice", "python -m strainer_gan_tpu_torch.cli " + " ".join(args))
+    tee = Tee(sys.stdout)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    tr, results = cli.run(args)
+    with contextlib.redirect_stdout(tee):
+        tr, results = cli.run(args)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     launches = kernels.launch_counts()
@@ -634,7 +679,7 @@ def slice_phase(torch, np, out_dir: Path):
     eng = tr.engine
     base = eng.base_active.cpu().numpy()
     refined = tr.mask_history[3]
-    check(tr.opt_d.param_groups[0]["lr"] == cfg.train.lr_d * cfg.train.lr_decay_factor,
+    check(get_lr(tr.opt_d) == float(np.float32(cfg.train.lr_d * cfg.train.lr_decay_factor)),
           "no LR cut at epoch 3")
     check(0 < base.sum() <= tr.dataset.n, "empty prefilter mask")
     check(all(np.array_equal(m, base) for m in tr.mask_history[:3]), "strained before epoch 3")
@@ -696,8 +741,8 @@ def slice_phase(torch, np, out_dir: Path):
     phase("slice", f"steady s/step (epochs 1-2): {sum(steady) / len(steady):.5f}; the CLI's "
           f"mean_step_time {results['summary']['mean_step_time']:.5f}; outputs: samples.png, "
           f"samples_epoch2/4.png, metrics.json, ckpt/epoch_0-3, {len(tr.img_list)} grids")
-    phase("slice", f"kernels {json.dumps(launches)}")
-    return tr, launches
+    phase("slice", f"kernels {json.dumps(launches)}; {graphs(tr, 'slice')}")
+    return tr, launches, tee.copy.getvalue()
 
 
 def band_phase(torch, np, tr, out_dir: Path):
@@ -776,7 +821,7 @@ def basic_phase(torch, np):
     """``basic`` (no strainer) through the command line for one epoch."""
     from strainer_gan_tpu_torch import cli
 
-    args = ["--preset", "basic", "--epochs", "1", "--max-synth", "2048"]
+    args = ["--preset", "basic", "--epochs", "1", "--max-synth", "4480"]
     t0 = time.perf_counter()
     tr, results = cli.run(args)
     torch.cuda.synchronize()
@@ -788,7 +833,7 @@ def basic_phase(torch, np):
           "basic: non-finite or missing losses")
     phase("basic", f"{tr.dataset.n} images, {results['summary']['steps']} steps, batch "
           f"{tr.cfg.data.batch_size}, mean_step_time {results['summary']['mean_step_time']:.5f} "
-          f"s, {time.perf_counter() - t0:.2f} s in all; no strain")
+          f"s, {time.perf_counter() - t0:.2f} s in all; no strain; {graphs(tr, 'basic')}")
 
 
 def zscore_loss_phase(torch, np):
@@ -798,7 +843,7 @@ def zscore_loss_phase(torch, np):
     from strainer_gan_tpu_torch.parity import oracle
     from strainer_gan_tpu_torch.strain import thresholds as TH
 
-    args = ["--preset", "zscore_loss", "--epochs", "4", "--max-synth", "2048", "--parity-check"]
+    args = ["--preset", "zscore_loss", "--epochs", "4", "--max-synth", "2560", "--parity-check"]
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     tr, results = cli.run(args)
@@ -838,7 +883,8 @@ def zscore_loss_phase(torch, np):
           f"{eng.last_score_path} path kept {int(refined.sum())} at {lthr:.8g} (numpy "
           f"{lthr_np:.8g}; re-scored {n_rescored:.0f}, fell back {fell_back:.0f}, drift "
           f"{drift:.3g}); parity {parity.get('agreement')}; {results['summary']['steps']} "
-          f"steps, {seconds:.2f} s in all; kernels {json.dumps(launches)}")
+          f"steps, {seconds:.2f} s in all; kernels {json.dumps(launches)}; "
+          f"{graphs(tr, 'zscore_loss')}")
 
 
 def zscore_dbscan_phase(torch, np):
@@ -924,7 +970,7 @@ def zscore_dbscan_phase(torch, np):
         train_s = o["seconds"] - o["strain_seconds"]
         phase("zscore_dbscan", f"epoch {e}: {o['steps']} steps in {train_s:.3f} s, "
               f"{train_s / max(o['steps'], 1):.5f} s/step")
-    phase("zscore_dbscan", f"kernels {json.dumps(launches)}")
+    phase("zscore_dbscan", f"kernels {json.dumps(launches)}; {graphs(tr, 'zscore_dbscan')}")
     return launches, tr.dataset
 
 
@@ -958,7 +1004,8 @@ def zscore_short_phases(torch, np):
         steps = sum(o["steps"] for o in out)
         phase(name, f"{tr.dataset.n} images: strain kept {int(mask.sum())}/{int(prev.sum())} "
               f"at threshold {float(tr.engine.last_threshold):.6g}; {len(out)} epochs, "
-              f"{steps} steps, {seconds:.2f} s in all; kernels {json.dumps(launches)}")
+              f"{steps} steps, {seconds:.2f} s in all; kernels {json.dumps(launches)}"
+              + (f"; {graphs(tr, name)}" if epochs else "; no training step"))
 
 def loss_fixture_phase(torch, np):
     """The card's loss-space, AE and in-step decisions against the JAX
@@ -1085,7 +1132,8 @@ def batch_mask_phase(torch, np):
           f"{cfg.model.nz} ngf={cfg.model.ngf} ndf={cfg.model.ndf}, {cfg.model.compute_dtype}, "
           f"batch {cfg.data.batch_size}, mask_quantile {cfg.strain.mask_quantile} from epoch "
           f"{gate}; whole CLI run {total:.2f} s; {want}; the last gated step kept {kept} of "
-          f"{nv} valid lanes; parity {json.dumps(parity)}; kernels {json.dumps(launches)}")
+          f"{nv} valid lanes; parity {json.dumps(parity)}; kernels {json.dumps(launches)}; "
+          f"{graphs(tr, 'batch_mask')}")
     phase("batch_mask", f"s/step (host clock between step logs): ungated epochs 1-{gate - 1} "
           f"{sum(ungated) / len(ungated):.5f} over {len(ungated)} steps; epoch {gate} (masked) "
           f"{sum(per_epoch[gate]) / len(per_epoch[gate]):.5f} over {len(per_epoch[gate])} "
@@ -1134,6 +1182,257 @@ def batch_mask_phase(torch, np):
           f"{summary['device_busy_ms'] / 20:.3f} ms")
     for op in summary["top"]:
         phase("batch_mask", f"  {op['ms']:9.3f} ms  x{op['count']:5d}  {op['name'][:110]}")
+    return tr
+
+
+LOGGER_LINE = re.compile(r"^(\[\d+/\d+\]\[\d+/\d+\]\t|Epoch \d+: )")
+
+
+def logger_text(text: str) -> str:
+    """The Trainer's console lines (step logs, strain and contamination
+    lines) out of a run's output."""
+    return "\n".join(ln for ln in text.splitlines() if LOGGER_LINE.match(ln))
+
+
+def state_diffs(torch, a, b) -> list:
+    """Names of the tensors that differ between two Trainers: G's and D's
+    parameters and BatchNorm buffers, both Adams' moments and step counts."""
+    out = []
+    for name in ("gen", "disc", "opt_g", "opt_d"):
+        sa, sb = getattr(a, name).state_dict(), getattr(b, name).state_dict()
+        if name.startswith("opt"):
+            sa = {f"{i}.{k}": v for i, st in sa["state"].items() for k, v in st.items()}
+            sb = {f"{i}.{k}": v for i, st in sb["state"].items() for k, v in st.items()}
+        out += [f"{name}.{k}" for k in sa if not torch.equal(sa[k], sb[k])]
+    return out
+
+
+def same_run(torch, np, a, b, text_a: str, text_b: str, what: str) -> str:
+    """Check two runs bit for bit: state, loss series, per-sample loss
+    history, strain masks, epoch results, the parity report's last batch,
+    fixed-noise grids and console text.  Returns a summary."""
+    diffs = state_diffs(torch, a, b)
+    check(not diffs, f"{what}: {len(diffs)} tensors differ, first {diffs[:4]}")
+    check(a.logger.G_losses == b.logger.G_losses and a.logger.D_losses == b.logger.D_losses,
+          f"{what}: loss series differ")
+    check(len(a.epoch_loss_history) == len(b.epoch_loss_history) and all(
+        np.array_equal(x, y) for x, y in zip(a.epoch_loss_history, b.epoch_loss_history)),
+        f"{what}: per-sample loss history differs")
+    check(all(np.array_equal(x, y) for x, y in zip(a.mask_history, b.mask_history)),
+          f"{what}: strain masks differ")
+    keys = ("steps", "active", "lr_g", "lr_d", "filtered_contam", "total_contam")
+    check([[r[k] for k in keys] for r in a.epoch_results]
+          == [[r[k] for k in keys] for r in b.epoch_results], f"{what}: epoch results differ")
+    check(all(torch.equal(ra["last"][k], rb["last"][k])
+              for ra, rb in zip(a.epoch_results, b.epoch_results) for k in ra["last"]),
+          f"{what}: an epoch's last metrics differ")
+    ea, eb = a.engine, b.engine
+    for k in ("last_batch_scores", "last_batch_mask"):
+        va, vb = getattr(ea, k), getattr(eb, k)
+        check((va is None and vb is None) or torch.equal(va, vb), f"{what}: {k} differs")
+    check(ea.last_batch_valid == eb.last_batch_valid, f"{what}: last_batch_valid differs")
+    check(len(a.img_list) == len(b.img_list) and all(
+        np.array_equal(x, y) for x, y in zip(a.img_list, b.img_list)),
+        f"{what}: fixed-noise grids differ")
+    ta, tb = logger_text(text_a), logger_text(text_b)
+    check(ta == tb and ta, f"{what}: console text differs")
+    n = sum(r["steps"] for r in a.epoch_results)
+    return (f"{what}: bit-equal over {len(a.epoch_results)} epochs, {n} steps (state "
+            f"tensors, losses, per-sample history, masks, results, grids, "
+            f"{len(ta.splitlines())} console lines)")
+
+
+def chunked_final(torch, np, tr, console: str, ckpt: Path):
+    """``final``'s CLI run (steps_per_dispatch=32; ``console`` its output)
+    against the same run at steps_per_dispatch=1, and a resume through the
+    executor; the strain event's round trip on the host."""
+    from strainer_gan_tpu_torch.checkpoint import restore_checkpoint
+    from strainer_gan_tpu_torch.train import loop as LP
+    from strainer_gan_tpu_torch.train import steps as ST
+
+    t = tr.cfg.train
+    eager = LP.Trainer(tr.cfg.replace(train=dataclasses.replace(t, steps_per_dispatch=1)),
+                       dataset=tr.dataset)
+    eager.logger.stream = io.StringIO()
+    eager.setup()
+    for e in range(t.epochs):
+        eager.run_epoch(e)
+    check(eager.graph_stats["replays"] == 0, "the per-step run replayed a graph")
+    check(tr.engine.d_bn_eval and {k[2] for k in tr._executors} <= {True, False},
+          "final's strain did not turn D's batch statistics off")
+    phase("chunked", same_run(torch, np, tr, eager, console, eager.logger.stream.getvalue(),
+                              f"final steps_per_dispatch={t.steps_per_dispatch} vs 1, epochs "
+                              "0-3 (strain, LR cut, d_train flip at 3)"))
+    steady = [sum(ts[1] + ts[2]) / len(ts[1] + ts[2])
+              for ts in (epoch_step_times(r, tr.cfg.data.batch_size) for r in (tr, eager))]
+    phase("chunked", f"final's steady s/step (epochs 1-2, host clock between step logs, "
+          f"{CARD}): {steady[0]:.5f} with graph replays, {steady[1]:.5f} eager")
+
+    # resume from epoch 1 through the executor, timing the strain's round trip
+    fresh = LP.Trainer(tr.cfg, dataset=tr.dataset)
+    fresh.logger.stream = io.StringIO()
+    fresh.setup()
+    check(restore_checkpoint(str(ckpt), fresh, epoch=1) == 2, "restore did not resume at 2")
+    marks = {}
+    strain, fetch = fresh.engine.on_epoch_start, fresh._fetch_epoch_stats
+    step, call = LP.train_step, ST.ChunkedStep.__call__
+
+    def timed(name, fn):
+        def wrapped(*a, **kw):
+            out = fn(*a, **kw)
+            marks.setdefault(name, time.perf_counter())
+            return out
+        return wrapped
+
+    def first_launch(kind, fn):
+        def wrapped(*a, **kw):
+            marks.setdefault("launch", (time.perf_counter(), kind))
+            return fn(*a, **kw)
+        return wrapped
+
+    fresh.run_epoch(2)
+    fresh.engine.on_epoch_start = timed("strain", strain)
+    fresh._fetch_epoch_stats = timed("fetch", fetch)
+    LP.train_step = first_launch("an eager step", step)
+    ST.ChunkedStep.__call__ = first_launch("a replay", call)
+    try:
+        fresh.run_epoch(3)
+    finally:
+        LP.train_step, ST.ChunkedStep.__call__ = step, call
+    torch.cuda.synchronize()
+    diffs = state_diffs(torch, fresh, tr)
+    check(not diffs, f"resumed final: {len(diffs)} tensors differ from the uninterrupted run's")
+    check(np.array_equal(fresh.mask_history[-1], tr.mask_history[3])
+          and np.array_equal(fresh.epoch_loss_history[-1], tr.epoch_loss_history[3]),
+          "resumed final: epoch-3 mask or losses differ")
+    t_launch, kind = marks["launch"]
+    phase("chunked", f"final resumed from epoch 1 through the executor: epoch-3 mask "
+          f"({int(fresh.mask_history[-1].sum())} kept) and state bit-equal to the "
+          f"uninterrupted run's; {graphs(fresh, 'resumed final')}")
+    phase("chunked", f"strain-event round trip (final epoch 3, {CARD}): the band scoring "
+          f"returned to the host, then {(marks['fetch'] - marks['strain']) * 1e3:.3f} ms to "
+          f"the end of _fetch_epoch_stats, {(t_launch - marks['strain']) * 1e3:.3f} ms to the "
+          f"first training launch ({kind}: epoch 3 trains {fresh.epoch_results[-1]['steps']} "
+          f"steps with a new capture key, d_train off)")
+
+
+def chunked_batch_mask(torch, np, bm):
+    """``batch_mask`` at steps_per_dispatch 32 and 1 on the CLI phase's
+    images, gated from epoch 1; then replayed against eager steps, timed,
+    and the device-busy share of a replayed chunk."""
+    from strainer_gan_tpu_torch.data import normalize_u8
+    from strainer_gan_tpu_torch.obs import profiler
+    from strainer_gan_tpu_torch.train.loop import Trainer
+    from strainer_gan_tpu_torch.train.steps import train_step
+
+    base = bm.cfg.replace(strain=dataclasses.replace(bm.cfg.strain, mask_start_epoch=1))
+    runs = []
+    for spd in (base.train.steps_per_dispatch, 1):
+        tr = Trainer(base.replace(train=dataclasses.replace(base.train, steps_per_dispatch=spd)),
+                     dataset=bm.dataset)
+        tr.logger.stream = io.StringIO()
+        tr.setup()
+        for e in range(3):
+            tr.run_epoch(e)
+        runs.append(tr)
+    a, b = runs
+    check(a.epoch_results[1]["total_contam"] > 0, "batch_mask: no contaminant counted")
+    phase("chunked", same_run(torch, np, a, b, a.logger.stream.getvalue(),
+                              b.logger.stream.getvalue(),
+f"batch_mask steps_per_dispatch={a.cfg.train.steps_per_dispatch} vs "
+                              "1, epoch 0 ungated, 1-2 masked") + f"; {graphs(a, 'chunked batch_mask')}")
+
+    ds, bs, nz, chunk = a.dataset, base.data.batch_size, base.model.nz, a.cfg.train.steps_per_dispatch
+    idx = a.epoch_indices(9, torch.ones((ds.n,), dtype=torch.bool, device="cuda"), chunk)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    lr = base.train.lr_d
+    d_train = not a.engine.d_bn_eval
+    times = {}
+    for mask_on in (True, False):
+        ex = a._executors[(chunk, mask_on, d_train, True, base.model.compute_dtype)]
+
+        def replayed(k):
+            for _ in range(k):
+                ex(idx, torch.randn((chunk, bs, nz), generator=g, device="cuda"), lr, lr)
+
+        def eager(k):
+            for i in range(k):
+                ids = idx[i % chunk]
+                train_step(a.gen, a.disc, a.opt_g, a.opt_d, normalize_u8(ds.gather(ids)),
+                           ds.source_id[ids], torch.randn((bs, nz), generator=g, device="cuda"),
+                           lr, lr, a.scfg, d_train=d_train, mask_on=mask_on)
+
+        def ms(fn, k, steps):
+            fn(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(k)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / steps * 1e3
+
+        label = "masked" if mask_on else "unmasked"
+        times[label] = (ms(replayed, 4, 4 * chunk), ms(eager, 64, 64),
+                        ms(replayed, 4, 4 * chunk))
+        if mask_on:
+            # the replay alone, between CUDA events: the chunk's device time
+            ex(idx, torch.randn((chunk, bs, nz), generator=g, device="cuda"), lr, lr)
+            dev_ms = time_ms(torch, ex.graph.replay, iters=4, warmup=1) / chunk
+            with tempfile.TemporaryDirectory() as log_dir:
+                with profiler.trace(log_dir) as prof:
+                    replayed(2)
+                summary = profiler.summarize(prof, steps=2 * chunk)
+    parts = ", ".join(f"{k} {r0:.3f} / {r1:.3f} replayed, {e:.3f} eager"
+                      for k, (r0, e, r1) in times.items())
+    phase("chunked", f"ms/step, synchronised, batch {bs} ({CARD}; replayed = 4 chunks of "
+          f"{chunk} with their noise draws and copies, before / after 64 eager steps): "
+          + parts)
+    r_masked = (times["masked"][0] + times["masked"][2]) / 2
+    traced = (f"the trace of 2 replayed chunks shows {summary['launches_per_step']:.1f} device "
+              f"operations per step, device busy {summary['device_busy_ms']:.2f} ms of "
+              f"{summary['wall_ms']:.2f} ms traced ({summary['busy_share']:.3f})"
+              if summary["device_busy_ms"] > 0 else
+              "the trace of 2 replayed chunks shows no device operation (a replay is one "
+              "graph launch to the profiler)")
+    phase("chunked", f"a replayed masked chunk: {dev_ms:.3f} ms a step of device time "
+          f"(CUDA events around the replay alone) against {r_masked:.3f} ms a step through the "
+          f"executor: device busy {dev_ms / r_masked:.3f} of the step; {traced}")
+    if summary["device_busy_ms"] > 0:
+        for op in summary["top"][:6]:
+            phase("chunked", f"  {op['ms']:9.3f} ms  x{op['count']:5d}  {op['name'][:110]}")
+
+
+def serve_phase(torch, np, ckpt: Path):
+    """A Sampler from the ``final`` run's checkpoint: 256 images at batch 64,
+    one graph replay a batch after an eager warm-up batch."""
+    from strainer_gan_tpu_torch.serve import Sampler
+
+    s = Sampler.from_checkpoint(str(ckpt), batch_size=64)
+    t0 = time.perf_counter()
+    imgs = s.sample(256, seed=0)
+    first = time.perf_counter() - t0
+    check(imgs.shape == (256, 64, 64, 3) and imgs.dtype == np.uint8 and imgs.std() > 1,
+          f"sampler output {imgs.shape} {imgs.dtype}")
+    check(s.replays == 3, f"{s.replays} of 4 batches replayed, want 3 after the warm-up")
+    g = torch.Generator().manual_seed(3)
+    zs = [torch.randn((64, s.cfg.model.nz), generator=g) for _ in range(4)]
+    for z in zs:
+        check(torch.equal(s._run(z), s._sample_batch(z.cuda())),
+              "a replayed batch differs from the eager batch on the same noise")
+
+    def per_batch(fn):
+        fn(zs[0])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(20):
+            fn(zs[i % 4])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / 20 * 1e3
+
+    rep, eag = per_batch(s._run), per_batch(lambda z: s._sample_batch(z.cuda()))
+    phase("serve", f"Sampler.from_checkpoint (final, epoch 3), 256 images at batch 64 in "
+          f"{first:.3f} s (warm-up and capture included); replayed batches bit-equal to "
+          f"eager ones; latency a batch, synchronised, 20 batches ({CARD}): replayed "
+          f"{rep:.3f} ms, eager {eag:.3f} ms")
 
 
 def gmm_sensitivity(GM, fit) -> float:
@@ -1257,7 +1556,7 @@ def loss_space_phases(torch, np, staged):
         check(np.all(np.isfinite(tr.logger.D_losses)), f"{name}: non-finite losses")
         phase(name, f"{ds.n} images (the first 16,384 of zscore_dbscan's mixture), "
               f"{epochs} epochs in {seconds:.2f} s; " + "; ".join(events) + extra
-              + f"; kernels {json.dumps(launches)}")
+              + f"; kernels {json.dumps(launches)}; {graphs(tr, name)}")
 
 
 def main() -> int:
@@ -1281,6 +1580,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()
+    global CARD
+    CARD = smi[0] if smi else "unknown"
     phase("build", f"{len(_build.SOURCES)} sources with nvcc for sm_90a: "
           f"{'cached library' if built is None else f'{built:.1f} s'} "
           f"(load {time.perf_counter() - t0:.1f} s); card: {smi[0] if smi else 'unknown'}")
@@ -1293,8 +1594,10 @@ def main() -> int:
     loss_fixture_phase(torch, np)
     k3 = k3_phase(torch)
     with tempfile.TemporaryDirectory() as tmp:
-        tr, launches = slice_phase(torch, np, Path(tmp))
+        tr, launches, console = slice_phase(torch, np, Path(tmp))
         band_phase(torch, np, tr, Path(tmp))
+        chunked_final(torch, np, tr, console, Path(tmp) / "ckpt")
+        serve_phase(torch, np, Path(tmp) / "ckpt")
     del tr
     for r in results:
         r["launches"] = launches[r["name"]]
@@ -1306,7 +1609,9 @@ def main() -> int:
     zscore_short_phases(torch, np)
     basic_phase(torch, np)
     zscore_loss_phase(torch, np)
-    batch_mask_phase(torch, np)
+    bm = batch_mask_phase(torch, np)
+    chunked_batch_mask(torch, np, bm)
+    del bm
     phase("total", f"{time.perf_counter() - t_start:.1f} s from start to here")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

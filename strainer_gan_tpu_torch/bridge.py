@@ -116,16 +116,22 @@ def adam_moments_to_flax(module: torch.nn.Module, opt: torch.optim.Optimizer
 def load_adam_from_flax(module: torch.nn.Module, opt: torch.optim.Optimizer, mu, nu,
                         count: int) -> None:
     """Set a torch Adam over ``module`` to optax's ``ScaleByAdamState``
-    (``mu``, ``nu`` over the flax params, ``count`` steps taken)."""
+    (``mu``, ``nu`` over the flax params, ``count`` steps taken), through
+    ``opt.load_state_dict``: it puts each tensor where the optimizer keeps
+    it (a capturable Adam's step count on the device), and its post-hooks
+    run, among them the Trainer's, which drops the CUDA graphs that read
+    the replaced tensors."""
     params = dict(module.named_parameters())
-    with torch.no_grad():
-        for name, coll, path, layout in _entries(module):
-            if coll != "params":
-                continue
-            st = opt.state[params[name]]
-            st["step"] = torch.tensor(float(count))
-            st["exp_avg"] = torch.tensor(_to_torch(_get(mu, path), layout)).to(params[name])
-            st["exp_avg_sq"] = torch.tensor(_to_torch(_get(nu, path), layout)).to(params[name])
+    index = {id(p): i for i, p in enumerate(p for g in opt.param_groups for p in g["params"])}
+    sd = opt.state_dict()
+    for name, coll, path, layout in _entries(module):
+        if coll != "params":
+            continue
+        sd["state"][index[id(params[name])]] = dict(
+            step=torch.tensor(float(count)),
+            exp_avg=torch.tensor(_to_torch(_get(mu, path), layout)),
+            exp_avg_sq=torch.tensor(_to_torch(_get(nu, path), layout)))
+    opt.load_state_dict(sd)
 
 
 def resnet18_name_map() -> Iterator[Tuple[Tuple[str, ...], str, str]]:

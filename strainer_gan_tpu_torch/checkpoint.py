@@ -65,7 +65,12 @@ def save_checkpoint(path: str, trainer, epoch: int) -> str:
 def restore_checkpoint(path: str, trainer, epoch: Optional[int] = None) -> int:
     """Restore into a trainer built from the same config (after its
     ``setup()``); returns the epoch to resume from.  Without ``epoch``, the
-    latest saved one; an explicit earlier epoch reads that epoch's meta."""
+    latest saved one; an explicit earlier epoch reads that epoch's meta.
+
+    The modules load in place, but each optimizer's ``load_state_dict``
+    replaces its state tensors and its rate: its post-hook makes the
+    Trainer drop every captured chunk, which would otherwise go on
+    training the old tensors."""
     path = os.path.abspath(path)
     if epoch is None:
         epoch = max(int(d.split("_", 1)[1]) for d in os.listdir(path)

@@ -124,8 +124,13 @@ class TrainConfig:
     fixed_noise_n: int = 64
     sample_train_bn: bool = True
     check_finite: bool = False
+    # steps a chunk: on the card one CUDA graph replay runs a full chunk
+    # (train/steps.py ChunkedStep); 1 runs every step eagerly
     steps_per_dispatch: int = 32
+    # the JAX scan's unroll factor; a graph has no counterpart: ignored
     scan_unroll: int = 1
+    # the JAX package's deferred strain-stats executor; not ported: the
+    # port always runs the blocking path (one fetch before the epoch's steps)
     defer_epoch_stats: bool = True
 
 

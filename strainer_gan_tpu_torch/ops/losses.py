@@ -41,7 +41,12 @@ class _BCEFromProbs(torch.autograd.Function):
 def bce_from_probs(probs: torch.Tensor, target: Target) -> torch.Tensor:
     """``nn.BCELoss(reduction='none')`` on float32 probabilities."""
     probs = probs.to(torch.float32)
-    t = torch.as_tensor(target, dtype=torch.float32, device=probs.device)
+    if isinstance(target, torch.Tensor):
+        t = target.to(dtype=torch.float32, device=probs.device)
+    else:
+        # a fill on the device, not a copy from the host: the train step
+        # must stay capturable in a CUDA graph
+        t = torch.full((), target, dtype=torch.float32, device=probs.device)
     return _BCEFromProbs.apply(probs, t)
 
 

@@ -27,7 +27,12 @@ Scalar = Union[float, torch.Tensor]
 
 
 def _f32(q: Scalar, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(q, dtype=torch.float32, device=device)
+    """``q`` as a 0-d float32 tensor on ``device``; a Python number by a fill
+    there, not a copy from the host, so the in-step quantile stays capturable
+    in a CUDA graph."""
+    if isinstance(q, torch.Tensor):
+        return q.to(dtype=torch.float32, device=device)
+    return torch.full((), q, dtype=torch.float32, device=device)
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -65,7 +70,8 @@ def quantile(x: torch.Tensor, q: Scalar) -> torch.Tensor:
     w_lo = 1.0 - w_hi
     lo = torch.clamp(lo, torch.zeros_like(n), n - 1.0).to(torch.int64)
     hi = torch.clamp(hi, torch.zeros_like(n), n - 1.0).to(torch.int64)
-    out = fma_f32(xs[hi], w_hi, xs[lo] * w_lo)
+    # take(), not xs[t]: indexing by a 0-d tensor reads it back to the host
+    out = fma_f32(torch.take(xs, hi), w_hi, torch.take(xs, lo) * w_lo)
     return torch.where(torch.isnan(x).any(), torch.full_like(out, float("nan")), out)
 
 
@@ -87,8 +93,8 @@ def interpolate_sorted(xs: torch.Tensor, n_valid: torch.Tensor,
     lo = torch.floor(pos).to(torch.int64)
     hi = torch.ceil(pos).to(torch.int64)
     frac = pos - lo
-    x_lo = xs[torch.clamp(lo, 0, n - 1)]
-    x_hi = xs[torch.clamp(hi, 0, n - 1)]
+    x_lo = torch.take(xs, torch.clamp(lo, 0, n - 1))
+    x_hi = torch.take(xs, torch.clamp(hi, 0, n - 1))
     return x_lo + (x_hi - x_lo) * frac
 
 

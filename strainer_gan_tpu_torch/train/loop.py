@@ -1,19 +1,40 @@
-"""The epoch driver (counterpart of `strainer_gan_tpu/train/loop.py`), the
-blocking path.
+"""The epoch loop (counterpart of `strainer_gan_tpu/train/loop.py`), its
+blocking chunked path (`loop.py:392-561`).
 
 ``Trainer`` turns a config into a run: builds the mixture, stages it on
 the device, builds G/D and their Adam optimizers, wires the strainer, and
 drives the reference's per-epoch schedule (`# final.py:414-448`):
 prefilter -> [lr cut] -> [re-strain] -> batch loop.  One host fetch per
 strain event (active count, strain accounting and the band path's overflow
-flag) fixes the step count; the console prints every ``log_every`` steps,
-the fixed-noise grids every ``sample_every`` iterations, the epoch's
-per-sample loss history and, on epochs of the in-step mask, one packed
-fetch of the contamination counters are the other host reads.
+flag) fixes the step count before the epoch's steps are launched (the
+blocking path; ``defer_epoch_stats`` is accepted and runs it too, as the
+JAX package's multi-host runs do, until the deferred executor is ported).
+
+The epoch is cut into segments that end right after each fixed-noise
+sample point (``sample_every``); each segment runs as full chunks of
+``steps_per_dispatch`` steps through ``steps.ChunkedStep`` (on the card,
+one CUDA graph replay a chunk), then a per-step remainder; the
+``drop_last=False`` partial tail always runs per step, lane-masked.  The
+first chunk of a capture key (chunk, ``mask_on``, ``d_train``, stem
+sharing, compute type) is preceded by one per-step step of the run with
+that key, its warm-up: nothing is trained that the per-step path would
+not train.  ``steps_per_dispatch=1`` is the per-step loop.  Executors are
+cached per Trainer and share one graph memory pool; ``drop_captures``
+empties the cache, and every ``load_state_dict`` of either optimizer
+(``checkpoint.restore_checkpoint``, ``bridge.load_adam_from_flax``) calls
+it.  ``scan_unroll`` has no counterpart in a graph (in the JAX package it
+changes compile time only) and is ignored.  ``graph_stats`` counts the
+captures and replays, beside ``kernel_launches``.
+
+The console prints every ``log_every`` steps (at most one host fetch a
+chunk), the fixed-noise grids every ``sample_every`` iterations, the
+epoch's per-sample loss history and, on epochs of the in-step mask, one
+packed fetch of the contamination counters are the other host reads.
 
 ``epoch_indices`` and ``step_noise`` draw an epoch's batch order and a
-step's noise from the Trainer's generator; a test may replace them on an
-instance to hand the port the JAX package's draws.
+step's noise from the Trainer's generator, outside any graph and in the
+per-step order; a test may replace them on an instance to hand the port
+the JAX package's draws.
 
 ``kernel_launches`` holds how often each CUDA kernel wrapper launched
 during ``run()``.
@@ -37,7 +58,7 @@ from ..strain.engine import StrainerEngine
 from ..utils.trees import finite_check
 from .schedules import lr_at
 from .state import make_optimizers
-from .steps import autocast, step_config_from, train_step
+from .steps import ChunkedStep, autocast, step_config_from, train_step
 
 BAND_COOLOFF_EVENTS = 5  # f32 strain events after a band overflow (`loop.py:302-308`)
 
@@ -78,6 +99,26 @@ class Trainer:
         self.kernel_launches: Dict[str, int] = {}
         self._iters = 0  # global training iterations so far
         self._stats = None  # (n_active, true-positive removals, n_contaminants)
+        # chunk executors by capture key, their shared graph pool and counts
+        self._executors: Dict[tuple, ChunkedStep] = {}
+        self._pool = None
+        self.graph_stats = dict(captures=0, replays=0, capture_s=[], instantiate_s=[])
+        for opt in (self.opt_g, self.opt_d):
+            # a loaded state rebinds the tensors a captured graph reads
+            opt.register_load_state_dict_post_hook(lambda _opt: self.drop_captures())
+
+    def drop_captures(self) -> None:
+        """Forget every chunk executor and its graph (and its warm-up)."""
+        self._executors.clear()
+
+    def _add_executor(self, key: tuple, like: Dict) -> None:
+        chunk, mask_on, d_train, stem_share, _ = key
+        if self.device.type == "cuda" and self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        self._executors[key] = ChunkedStep(
+            self.gen, self.disc, self.opt_g, self.opt_d, self.dataset, self.scfg, chunk, like,
+            mask_on=mask_on, d_train=d_train, stats=self.graph_stats, stem_share=stem_share,
+            pool=self._pool)
 
     def setup(self) -> None:
         """Pre-training strain (the z-score prefilter).  Not logged as a
@@ -161,12 +202,16 @@ class Trainer:
         idx = self.epoch_indices(epoch, active, steps)
         d_train = not self.engine.d_bn_eval
         sampling = bool(t.sample_every)
+        chunk = max(1, t.steps_per_dispatch)
+        key = (chunk, mask_on, d_train, True, self.scfg.compute_dtype)
         losses = []  # per-sample real losses of the epoch's steps, on the device
         # contamination counters of the in-step mask, summed on the device
         counters = torch.zeros((2,), dtype=torch.int64, device=self.device)
         metrics = None
         lanes = None
-        for i in range(steps):
+
+        def run_one(i):
+            nonlocal metrics, lanes
             ids = idx[i]
             x = normalize_u8(self.dataset.gather(ids), torch.float32)
             z = self.step_noise(epoch, i)
@@ -178,10 +223,43 @@ class Trainer:
             )
             self.logger.log_step(epoch, t.epochs, i, steps, metrics)
             if mask_on:
-                counters += torch.stack([metrics["n_contam"], metrics["n_filtered_contam"]])
+                counters.add_(torch.stack([metrics["n_contam"], metrics["n_filtered_contam"]]))
             losses.append(metrics["real_loss_per_sample"][:lanes])
-            # a grid after every sample_every-th global iteration (`#%basic.py:300-304`)
-            if sampling and (self._iters + i) % t.sample_every == 0:
+
+        def run_chunk(i, ex):
+            nonlocal metrics, lanes
+            z = torch.stack([self.step_noise(epoch, i + j) for j in range(chunk)])
+            m = ex(idx[i:i + chunk], z, lr_g, lr_d)  # a copy: the next chunk reuses the buffers
+            self.logger.log_chunk(epoch, t.epochs, i, steps, m, chunk)
+            if mask_on:
+                counters.add_(torch.stack([m["n_contam"].sum(), m["n_filtered_contam"].sum()]))
+            losses.append(m["real_loss_per_sample"].reshape(-1))
+            metrics, lanes = {k: v[-1] for k, v in m.items()}, None
+
+        # segments end right after each step whose global iteration is a
+        # sample point (`#%basic.py:300-304`; `loop.py:527-561`): full chunks,
+        # then the remainder step by step
+        pos = 0
+        while pos < steps:
+            if sampling:
+                until = (-(self._iters + pos)) % t.sample_every
+                boundary, sample_here = min(pos + until + 1, steps), pos + until < steps
+            else:
+                boundary, sample_here = steps, False
+            # full chunks stop short of the partial tail step
+            limit = boundary - (1 if (tail and boundary == steps) else 0)
+            while chunk > 1 and pos + chunk <= limit:
+                if key not in self._executors:
+                    run_one(pos)  # the key's warm-up: a step of the run
+                    self._add_executor(key, metrics)
+                    pos += 1
+                    continue
+                run_chunk(pos, self._executors[key])
+                pos += chunk
+            while pos < boundary:
+                run_one(pos)
+                pos += 1
+            if sample_here:
                 self.img_list.append(self.sample())
         self._iters += steps
         # and after the last iteration of the last epoch, unless that one

@@ -32,10 +32,12 @@ to the host.
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Dict, NamedTuple, Optional
 
 import torch
 
+from ..data.pipeline import normalize_u8
 from ..ops import losses as L
 from ..ops import stats as S
 from .state import set_lr
@@ -66,9 +68,13 @@ def step_config_from(cfg) -> StepConfig:
 
 def autocast(x: torch.Tensor, compute_dtype: str):
     """bfloat16 autocast on the card when ``compute_dtype`` asks for it;
-    float32 elsewhere."""
+    float32 elsewhere.  Its weight-cast cache is off: inside a CUDA graph
+    capture a cast cached during an earlier step would be baked into the
+    graph, and every replay would then train on stale bfloat16 weights.
+    Without the cache each region casts its weights again, which gives the
+    same values."""
     if compute_dtype == "bfloat16" and x.device.type == "cuda":
-        return torch.autocast("cuda", dtype=torch.bfloat16)
+        return torch.autocast("cuda", dtype=torch.bfloat16, cache_enabled=False)
     return contextlib.nullcontext()
 
 
@@ -78,8 +84,24 @@ def train_step(gen: torch.nn.Module, disc: torch.nn.Module,
                lr_g: float, lr_d: float, scfg: StepConfig, d_train: bool = True,
                lane_count: Optional[int] = None, mask_on: bool = False,
                stem_share: bool = True) -> Dict[str, torch.Tensor]:
-    """One D-first step on a normalised NCHW batch ``x``; updates the modules
-    and optimizers in place and returns the metrics of `steps.py:347-360`.
+    """One D-first step on a normalised NCHW batch ``x`` at rates ``lr_g``,
+    ``lr_d``; updates the modules and optimizers in place and returns the
+    metrics of `steps.py:347-360`.  See ``step_body``."""
+    set_lr(opt_g, lr_g)
+    set_lr(opt_d, lr_d)
+    return step_body(gen, disc, opt_g, opt_d, x, source_id, z, scfg, d_train=d_train,
+                     lane_count=lane_count, mask_on=mask_on, stem_share=stem_share)
+
+
+def step_body(gen: torch.nn.Module, disc: torch.nn.Module,
+              opt_g: torch.optim.Optimizer, opt_d: torch.optim.Optimizer,
+              x: torch.Tensor, source_id: torch.Tensor, z: torch.Tensor,
+              scfg: StepConfig, d_train: bool = True,
+              lane_count: Optional[int] = None, mask_on: bool = False,
+              stem_share: bool = True) -> Dict[str, torch.Tensor]:
+    """The step at the optimizers' current rates: what ``ChunkedStep``
+    captures.  It reads nothing back to the host and makes no tensor from
+    host data, so a CUDA graph can capture it.
 
     ``d_train=False`` is the bn_eval_after_score quirk: D's BatchNorms use
     (and keep) their running statistics.  ``mask_on`` gates the in-step
@@ -95,8 +117,6 @@ def train_step(gen: torch.nn.Module, disc: torch.nn.Module,
         valid_w = valid.to(torch.float32)
     real_t, fake_t = scfg.real_label, scfg.fake_label
     amp = autocast(x, scfg.compute_dtype)
-    set_lr(opt_g, lr_g)
-    set_lr(opt_d, lr_d)
 
     # ---- in-step strain: score the real batch, keep the top 1 - q
     masked = scfg.batch_mask and mask_on
@@ -166,3 +186,106 @@ def train_step(gen: torch.nn.Module, disc: torch.nn.Module,
             n_filtered_contam=filtered,
         )
     return metrics
+
+
+class ChunkedStep:
+    """``chunk`` consecutive train steps as one unit (counterpart of
+    `strainer_gan_tpu/train/steps.py:392-473`, ``make_chunked_train_step``).
+
+    On the card the chunk is one CUDA graph: the first call captures
+    ``chunk`` calls of ``step_body`` (the same body the per-step path runs,
+    so the results are bit for bit the same) and every call replays it; a
+    capture or a replay that fails raises, nothing drops back to eager
+    steps.  On the CPU, which a caller must ask for, the same body runs
+    eagerly over the same buffers.
+
+    Static inputs: ``idx`` (chunk, batch) sample indices and ``z`` (chunk,
+    batch, nz) noise, filled from the caller's draws at each call; each
+    step gathers and normalises its batch from the dataset inside the
+    chunk, as the JAX scan's ``jnp.take`` does.  Static outputs: the
+    step's metrics stacked (chunk, ...) in ``out``, shaped like ``like``
+    (the metrics of a step already run with the same key: the capture's
+    warm-up, so Adam's state and cuDNN's plans exist before a capture).
+    ``__call__`` returns a copy of ``out``: the next call overwrites it.
+
+    Each call fills the optimizers' rate tensors (``state.set_lr``), which
+    the replay reads.  A graph keeps the addresses of everything it reads;
+    ``__call__`` checks before each replay that the parameters, buffers,
+    optimizer state and rates are still the tensors it captured and raises
+    if one was rebound (the Trainer drops its captures whenever an
+    optimizer loads a state, so this never fires on its path).  ``stats``
+    is the owner's dict of counts, shared by its executors: ``captures``,
+    ``replays``, and each capture's ``capture_s`` (the host's time to
+    record the chunk) and ``instantiate_s``.
+    """
+
+    def __init__(self, gen, disc, opt_g, opt_d, dataset, scfg: StepConfig, chunk: int,
+                 like: Dict[str, torch.Tensor], *, mask_on: bool, d_train: bool,
+                 stats: Dict, stem_share: bool = True, pool=None):
+        self.gen, self.disc, self.opt_g, self.opt_d = gen, disc, opt_g, opt_d
+        self.dataset, self.scfg, self.chunk = dataset, scfg, chunk
+        self.mask_on, self.d_train, self.stem_share = mask_on, d_train, stem_share
+        self.pool = pool
+        self.stats = stats
+        self.device = dev = dataset.device
+        b = like["real_loss_per_sample"].shape[0]
+        self.idx = torch.zeros((chunk, b), dtype=torch.int64, device=dev)
+        self.z = torch.zeros((chunk, b, scfg.nz), dtype=torch.float32, device=dev)
+        self.out = {k: torch.zeros((chunk,) + tuple(v.shape), dtype=v.dtype, device=dev)
+                    for k, v in like.items()}
+        self.graph = None
+        self._ptrs = None
+
+    def _body(self) -> None:
+        ds = self.dataset
+        for j in range(self.chunk):
+            ids = self.idx[j]
+            m = step_body(self.gen, self.disc, self.opt_g, self.opt_d,
+                          normalize_u8(ds.gather(ids), torch.float32), ds.source_id[ids],
+                          self.z[j], self.scfg, d_train=self.d_train, mask_on=self.mask_on,
+                          stem_share=self.stem_share)
+            for k, v in m.items():
+                self.out[k][j].copy_(v)
+
+    def _pointers(self):
+        ts = [*self.gen.parameters(), *self.gen.buffers(), *self.disc.parameters(),
+              *self.disc.buffers(), self.dataset.images, self.dataset.source_id]
+        for opt in (self.opt_g, self.opt_d):
+            ts += [g["lr"] for g in opt.param_groups]
+            ts += [t for st in opt.state.values() for t in st.values()
+                   if isinstance(t, torch.Tensor)]
+        return [t.data_ptr() for t in ts]
+
+    def _capture(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool):
+            t0 = time.perf_counter()
+            self._body()
+            t1 = time.perf_counter()
+        # leaving the block ends the capture and instantiates the graph
+        self.stats["instantiate_s"].append(time.perf_counter() - t1)
+        self.stats["capture_s"].append(t1 - t0)
+        self.stats["captures"] += 1
+        self.graph = graph
+        self._ptrs = self._pointers()
+
+    def __call__(self, idx: torch.Tensor, z: torch.Tensor, lr_g: float,
+                 lr_d: float) -> Dict[str, torch.Tensor]:
+        """Run the chunk on ``idx`` (chunk, batch) and ``z`` (chunk, batch, nz)
+        at rates ``lr_g``, ``lr_d``; returns the stacked metrics."""
+        self.idx.copy_(idx)
+        self.z.copy_(z)
+        set_lr(self.opt_g, lr_g)
+        set_lr(self.opt_d, lr_d)
+        if self.device.type == "cuda":
+            if self.graph is None:
+                self._capture()
+            elif self._pointers() != self._ptrs:
+                raise RuntimeError(
+                    "a tensor this CUDA graph reads was rebound after its capture "
+                    "(an optimizer or module state was loaded); drop the captures first")
+            self.graph.replay()
+            self.stats["replays"] += 1
+        else:
+            self._body()
+        return {k: v.clone() for k, v in self.out.items()}

@@ -20,6 +20,14 @@ must give the float32 path's mask and threshold exactly, launching K1 for
 the bulk and again for the band.  The masked train step gives the same
 keep mask with and without stem sharing, and the GMM, ensemble and AE
 thresholds on the card agree with the CPU plain path's.
+
+The chunked executor: Trainers at ``steps_per_dispatch=4`` (CUDA graph
+replays) and ``=1`` (eager steps) end bit-equal, across the in-step mask's
+gate, an LR cut (read from the rate tensor, no new capture) and the
+``d_train`` flip (a new capture); ``restore_checkpoint`` drops the
+captures, and a graph whose tensors were rebound refuses to replay; a step
+that cannot be captured raises instead of running eagerly.  The
+``Sampler``'s replayed batches equal its eager ones.
 """
 import numpy as np
 import pytest
@@ -365,3 +373,160 @@ def test_loss_space_and_ae_thresholds_on_the_card(cuda_device, m):
         assert abs(float(thr) - float(cpu_thr)) <= 1e-5 * abs(float(cpu_thr))
         flipped = mask.cpu() != cpu_mask
         assert torch.all((x[flipped] - cpu_thr).abs() <= 1e-5 * abs(float(cpu_thr)))
+
+
+# ---- the chunked executor (CUDA graphs) and the serving Sampler
+
+
+def _graph_cfg(preset, spd, epochs=2, **train):
+    import dataclasses
+
+    from strainer_gan_tpu_torch import get_preset
+
+    cfg = get_preset(preset)
+    cfg = cfg.replace(
+        data=dataclasses.replace(cfg.data, batch_size=32),
+        model=dataclasses.replace(cfg.model, ngf=16, ndf=16),
+        train=dataclasses.replace(cfg.train, epochs=epochs, log_every=5,
+                                  steps_per_dispatch=spd, **train))
+    if preset == "batch_mask":
+        cfg = cfg.replace(strain=dataclasses.replace(cfg.strain, mask_start_epoch=1))
+    return cfg
+
+
+def _graph_trainer(cfg, dataset=None):
+    import io
+
+    from strainer_gan_tpu_torch.train.loop import Trainer
+
+    tr = Trainer(cfg, max_synth=None if dataset else 320, dataset=dataset)
+    tr.logger.stream = io.StringIO()
+    tr.setup()
+    return tr
+
+
+def _assert_bit_equal(a, b):
+    for name in ("gen", "disc", "opt_g", "opt_d"):
+        sa, sb = getattr(a, name).state_dict(), getattr(b, name).state_dict()
+        if name.startswith("opt"):
+            sa, sb = sa["state"], sb["state"]
+            sa = {f"{i}.{k}": v for i, st in sa.items() for k, v in st.items()}
+            sb = {f"{i}.{k}": v for i, st in sb.items() for k, v in st.items()}
+        for k in sa:
+            assert torch.equal(sa[k], sb[k]), f"{name} {k}"
+    assert a.logger.stream.getvalue() == b.logger.stream.getvalue()
+    assert a.logger.G_losses == b.logger.G_losses and a.logger.D_losses == b.logger.D_losses
+    for x, y in zip(a.epoch_loss_history, b.epoch_loss_history):
+        assert np.array_equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["batch_mask", "basic"])
+def test_chunked_replay_equals_eager(cuda_device, preset):
+    """steps_per_dispatch=4 (graph replays) against =1 (eager), bf16 as
+    shipped, from the same initial state and draws: bit for bit.  For
+    ``batch_mask`` epoch 1 is gated; ``basic`` cuts its rate at epoch 1
+    (``lr_decay_epoch``), which the replays must read from the rate tensor
+    without a new capture."""
+    from strainer_gan_tpu_torch.train.state import get_lr
+
+    extra = dict(lr_decay_epoch=1) if preset == "basic" else {}
+    runs = []
+    for spd in (4, 1):
+        tr = _graph_trainer(_graph_cfg(preset, spd, **extra))
+        for e in range(2):
+            tr.run_epoch(e)
+        runs.append(tr)
+    a, b = runs
+    _assert_bit_equal(a, b)
+    assert a.graph_stats["replays"] > 0 and b.graph_stats["replays"] == 0
+    if preset == "basic":
+        assert a.graph_stats["captures"] == 1  # the LR cut needs no new capture
+        assert get_lr(a.opt_d) == get_lr(b.opt_d) == pytest.approx(a.cfg.train.lr_d * 0.1)
+    else:
+        assert a.graph_stats["captures"] == 2  # ungated and gated
+        assert a.epoch_results[1]["total_contam"] == b.epoch_results[1]["total_contam"] > 0
+
+
+@pytest.mark.cuda
+def test_d_train_flip_captures_again(cuda_device):
+    """bn_eval_after_score turns D's batch statistics off: a new capture
+    key, and still bit-equal to eager steps."""
+    runs = []
+    for spd in (4, 1):
+        tr = _graph_trainer(_graph_cfg("basic", spd))
+        tr.run_epoch(0)
+        tr.engine.d_bn_eval = True
+        tr.run_epoch(1)
+        runs.append(tr)
+    a, b = runs
+    _assert_bit_equal(a, b)
+    assert a.graph_stats["captures"] == 2
+    assert {k[2] for k in a._executors} == {True, False}
+
+
+@pytest.mark.cuda
+def test_restore_drops_captures(cuda_device, tmp_path):
+    """After restore_checkpoint the cache is empty, the old graph refuses to
+    replay (its tensors were rebound: checked by data_ptr), and the next
+    capture reads the restored tensors."""
+    from strainer_gan_tpu_torch.checkpoint import restore_checkpoint, save_checkpoint
+
+    tr = _graph_trainer(_graph_cfg("basic", 4))
+    tr.run_epoch(0)
+    save_checkpoint(str(tmp_path / "ck"), tr, 0)
+    tr.run_epoch(1)
+    (old,) = tr._executors.values()
+    assert old.graph is not None
+    restore_checkpoint(str(tmp_path / "ck"), tr)
+    assert not tr._executors
+    with pytest.raises(RuntimeError, match="rebound"):
+        old(old.idx.clone(), old.z.clone(), 2e-4, 2e-4)
+    tr.run_epoch(1)
+    (new,) = tr._executors.values()
+    assert new.graph is not None and new._ptrs == new._pointers()
+    steps = [st["step"].data_ptr() for st in tr.opt_d.state.values()]
+    assert set(steps) <= set(new._ptrs)
+
+
+@pytest.mark.cuda
+def test_sampler_replay_equals_eager(cuda_device):
+    """One batch a replay (after an eager warm-up batch), bit-equal to the
+    eager batch on the same noise."""
+    from strainer_gan_tpu_torch.serve import Sampler
+
+    cfg = _graph_cfg("final", 4)
+    gen = _graph_trainer(cfg).gen
+    s = Sampler(cfg, gen.state_dict(), batch_size=16)
+    g = torch.Generator().manual_seed(0)
+    zs = [torch.randn((16, cfg.model.nz), generator=g) for _ in range(4)]
+    got = [s._run(z) for z in zs]
+    assert s.replays == 3
+    for z, out in zip(zs, got):
+        assert torch.equal(out, s._sample_batch(z.to(cuda_device)))
+    imgs = s.sample(40, seed=1)
+    assert imgs.shape == (40, 64, 64, 3) and imgs.dtype == np.uint8
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises(cuda_device, monkeypatch):
+    """A step that reads a value back to the host cannot be captured: the
+    run raises, and no step ran eagerly in the graph's place.  (Last in the
+    file: it leaves a failed capture behind.)"""
+    from strainer_gan_tpu_torch.train import steps as ST
+
+    body = ST.step_body
+
+    def reads_back(*args, **kwargs):
+        m = body(*args, **kwargs)
+        float(m["errD"])  # a host read: illegal while a stream is capturing
+        return m
+
+    tr = _graph_trainer(_graph_cfg("basic", 4, sample_every=0))
+    monkeypatch.setattr(ST, "step_body", reads_back)
+    with pytest.raises(Exception):
+        tr.run_epoch(0)
+    assert tr.graph_stats["captures"] == 0 and tr.graph_stats["replays"] == 0
+    # the warm-up step ran; nothing after it
+    assert tr.logger.summary()["steps"] == 1
+    torch.cuda.synchronize()
