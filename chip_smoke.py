@@ -90,6 +90,28 @@ script exits non-zero without printing its result line:
    steps, masked and unmasked (synchronised), and a replayed masked chunk's
    device time (CUDA events) against its time through the executor, with a
    trace of two replayed chunks.
+11. in_batch_recycle: through the command line with ``--epochs 4
+   --max-synth 4500`` across its gate epoch (3): the reals the in-step keep
+   drops replace fakes in D's fake batch; the same run at
+   ``steps_per_dispatch=1`` bit-equal; the recycled lanes of each step of a
+   replayed gated chunk, and ms/step replayed with and without recycling.
+12. fake_pool: ``strainer_concat_fast`` through the command line with
+   ``--epochs 4 --max-synth 4096`` per source: the z-score prefilter and
+   the pool's outlier mask (K2a, K2b), the device-resident pool of 10% of
+   the images drawn from the outliers (its size, outlier count and
+   anime-like share printed), the pooled step (2x128 fake lanes) from the
+   gate epoch 3 and the epoch-3 loss strain (K1); the same run at
+   ``steps_per_dispatch=1`` bit-equal; a resume from epoch 2 to the same
+   epoch-3 mask, pool and state; ms/step replayed with the pool, before
+   its gate, and without it.
+
+Before the fixtures, the adam phase holds the card's capturable Adam
+(``train/state.py::make_adam``) to the JAX package's ``optax.scale_by_adam``
+updates in ``tests/fixtures/torch_port_jax_adam.npz``, eagerly and replayed
+from a CUDA graph, at 1e-5.  Every phase that stages a mixture prints its
+host seconds (``staging: native``), and the staging line sums them; the
+host_staging phase, right after the build, times the generators and the
+resize alone (native against its numpy plain version, bytes compared).
 
 Every Trainer phase trains through the chunked executor as the presets ship
 it (``steps_per_dispatch=32``: one CUDA graph replay a full chunk), prints
@@ -121,6 +143,11 @@ Deviations from the presets, each for a reason:
   ``--max-synth 4096`` (4,096 CelebA-like and 409 CIFAR-like images); in
   the chunked phase ``mask_start_epoch=1`` and 3 epochs on the same images
   (the gate within 3 epochs, for a run made twice).
+- ``in_batch_recycle``: ``--epochs 4`` (epoch 3 is its gate) and
+  ``--max-synth 4500`` (36 steps an epoch with a 20-lane tail: after the
+  run's first step, a sample point, a warm-up step and a chunk of 32).
+- ``strainer_concat_fast``: ``--epochs 4`` (epoch 3 is its gate and first
+  loss strain) and ``--max-synth 4096`` per source (8,192 images).
 
 The second-to-last lines are one JSON object of per-kernel results and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -213,6 +240,87 @@ def loss_fixture_inputs(seed: int = LOSS_FIXTURE_SEED) -> dict:
                 ae_errors=ae.astype(np.float32), batch_scores=scores.astype(np.float32))
 
 
+JAX_ADAM_FIXTURE = HERE / "tests" / "fixtures" / "torch_port_jax_adam.npz"
+ADAM_FIXTURE_SEED = 13
+# a conv kernel (torch layout), a BatchNorm scale and a bias
+ADAM_SHAPES = {"conv": (8, 4, 4, 4), "bn_scale": (16,), "bias": (16,)}
+ADAM_BETAS = ((0.5, 0.999), (0.9, 0.999))  # the presets', torch's defaults
+ADAM_RATES = (2e-4, 1e-4)
+ADAM_UPDATES = 5
+ADAM_CUT_AT = 3  # updates from this one on run at a tenth of the rate (the LR cut)
+ADAM_TOL = 1e-5
+
+
+def adam_rates(rate: float) -> list:
+    """The rate of each update: ``rate``, then the cut ``rate * 0.1``, as
+    ``train/schedules.py::lr_at`` gives it."""
+    return [rate if t < ADAM_CUT_AT else rate * 0.1 for t in range(ADAM_UPDATES)]
+
+
+def adam_fixture_inputs(seed: int = ADAM_FIXTURE_SEED) -> dict:
+    """The inputs of the committed Adam updates, made with numpy from
+    ``seed``: each tensor's initial value (``init_*``; the BatchNorm scale
+    about 1, the others about 0.02) and one float32 gradient an update
+    (``grads_*``, (updates,) + shape), its elements' magnitudes spread
+    log-uniformly from 1e-7 to 1e-1, so that eps = 1e-8 matters for some."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, shape in ADAM_SHAPES.items():
+        init = rng.standard_normal(shape) * 0.02 + (1.0 if name == "bn_scale" else 0.0)
+        scale = 10.0 ** rng.uniform(-7, -1, (ADAM_UPDATES,) + shape)
+        out[f"init_{name}"] = init.astype(np.float32)
+        out[f"grads_{name}"] = (rng.standard_normal(scale.shape) * scale).astype(np.float32)
+    return out
+
+
+def adam_gaps(torch, np, fixture, inputs: dict, device, replay: bool) -> dict:
+    """``train/state.py::make_adam``'s optimizer (capturable on the card)
+    run through the fixture's updates at every pair of betas and rate, with
+    ``set_lr`` before each update; with ``replay`` the first update runs
+    eagerly (it makes Adam's state) and every later one is a replay of one
+    captured ``opt.step()``.  Returns the largest gap of each kind over
+    every tensor and update: parameters absolute, Adam's moments relative
+    to their tensor's largest magnitude."""
+    from strainer_gan_tpu_torch.train.state import make_adam, set_lr
+    from strainer_gan_tpu_torch.train.steps import capturing
+
+    worst = dict(params=0.0, mu=0.0, nu=0.0)
+    for bi, betas in enumerate(ADAM_BETAS):
+        for ri, rate in enumerate(ADAM_RATES):
+            mod = torch.nn.ParameterDict({
+                n: torch.nn.Parameter(torch.tensor(inputs[f"init_{n}"], device=device))
+                for n in ADAM_SHAPES})
+            opt = make_adam(mod, rate, betas)
+            for n, p in mod.items():
+                p.grad = torch.zeros_like(p)
+            graph = None
+            for t, lr in enumerate(adam_rates(rate)):
+                for n, p in mod.items():
+                    p.grad.copy_(torch.from_numpy(inputs[f"grads_{n}"][t]))
+                set_lr(opt, lr)
+                if not replay or t == 0:
+                    opt.step()
+                else:
+                    if graph is None:
+                        graph = torch.cuda.CUDAGraph()
+                        with capturing(graph):
+                            opt.step()
+                    graph.replay()
+                for n, p in mod.items():
+                    tag = f"{n}_b{bi}_r{ri}"
+                    st = opt.state[p]
+                    got = dict(params=p.detach(), mu=st["exp_avg"], nu=st["exp_avg_sq"])
+                    for k, v in got.items():
+                        want = fixture[f"{k}_{tag}"][t]
+                        gap = float(np.abs(v.cpu().numpy().astype(np.float64) - want).max())
+                        if k != "params":
+                            gap /= max(float(np.abs(want).max()), 1e-30)
+                        worst[k] = max(worst[k], gap)
+    return worst
+
+
 def input_digests(inputs: dict) -> dict:
     """SHA-256 of each input's bytes."""
     import hashlib
@@ -240,6 +348,19 @@ def graphs(tr, name: str) -> str:
     cap = ", ".join(f"{c:.2f}+{i:.2f}" for c, i in zip(gs["capture_s"], gs["instantiate_s"]))
     return (f"graphs: {gs['captures']} captured (capture+instantiate s: {cap}), "
             f"{gs['replays']} chunks of {tr.cfg.train.steps_per_dispatch} replayed")
+
+
+STAGING = []  # (phase, images, host seconds) of every phase that staged a mixture
+
+
+def staging(tr, name: str) -> None:
+    """Print the host seconds the Trainer took to build its mixture (the
+    synthetic generators, then resize, crop and gather through the port's
+    host-staging library, ``native``)."""
+    check(tr.staging_seconds is not None, f"{name}: the Trainer staged no mixture")
+    STAGING.append((name, tr.dataset.n, tr.staging_seconds))
+    phase(name, f"staging: native, {tr.staging_seconds:.2f} s for {tr.dataset.n} images "
+          f"(host, {CARD})")
 
 
 def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
@@ -671,6 +792,7 @@ def slice_phase(torch, np, out_dir: Path):
     total = time.perf_counter() - t0
     launches = kernels.launch_counts()
 
+    staging(tr, "slice")
     cfg = tr.cfg
     shipped = get_preset("final")
     check(cfg == shipped.replace(train=dataclasses.replace(shipped.train, epochs=4)),
@@ -825,6 +947,7 @@ def basic_phase(torch, np):
     t0 = time.perf_counter()
     tr, results = cli.run(args)
     torch.cuda.synchronize()
+    staging(tr, "basic")
     check(tr.cfg.strain.method == "none" and tr.engine.last_mask is None
           and not tr.strain_quality, "basic strained")
     check(len(tr.mask_history) == 1 and tr.mask_history[0].all(), "basic mask is not all true")
@@ -850,6 +973,7 @@ def zscore_loss_phase(torch, np):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = kernels.launch_counts()
+    staging(tr, "zscore_loss")
     check(launches["zscore_column_stats"] >= 1 and launches["zscore_row_max"] >= 1,
           "K2 not launched on the zscore_loss path")
     check(launches["bce_scores"] >= 1, "K1 not launched on the zscore_loss path")
@@ -901,6 +1025,7 @@ def zscore_dbscan_phase(torch, np):
     t0 = time.perf_counter()
     tr = Trainer(cfg)
     torch.cuda.synchronize()
+    staging(tr, "zscore_dbscan")
     n = tr.dataset.n
     mb = tr.dataset.images.numel() / 1e6
     phase("zscore_dbscan", f"{n} images ({mb:.0f} MB uint8) staged on the card, G/D at "
@@ -983,6 +1108,7 @@ def zscore_short_phases(torch, np):
         cfg = get_preset(name)
         cfg = cfg.replace(data=dataclasses.replace(cfg.data, batch_size=128))
         tr = Trainer(cfg, max_synth=2048)
+        staging(tr, name)
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         if epochs:
@@ -1102,6 +1228,7 @@ def batch_mask_phase(torch, np):
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     launches = kernels.launch_counts()
+    staging(tr, "batch_mask")
     cfg = tr.cfg
     shipped = get_preset("batch_mask")
     check(cfg == shipped.replace(train=dataclasses.replace(shipped.train, epochs=11)),
@@ -1183,6 +1310,250 @@ def batch_mask_phase(torch, np):
     for op in summary["top"]:
         phase("batch_mask", f"  {op['ms']:9.3f} ms  x{op['count']:5d}  {op['name'][:110]}")
     return tr
+
+
+def host_staging_phase(np):
+    """The host-staging pieces alone on this host: 20,000 CelebA-like images
+    generated, 20,000 CIFAR-like ones generated at 32x32 and resized to 64
+    by the host-staging library (``native``), the first 2,000 of them by the
+    numpy plain version, and how many bytes the two differ by (0 where the
+    library's compiled roundings are the ones the plain version repeats)."""
+    from strainer_gan_tpu_torch.data import datasets as D
+
+    n, m = 20_000, 2_000
+    t0 = time.perf_counter()
+    D._synthetic("faces", n, 64, 3, 5)
+    t1 = time.perf_counter()
+    objects = D._synthetic("objects", n, 32, 3, 5).images
+    t2 = time.perf_counter()
+    native = D.resize_bilinear_u8(objects, 64)
+    t3 = time.perf_counter()
+    plain = D.resize_bilinear_u8_plain(objects[:m], 64)
+    t4 = time.perf_counter()
+    diff = int((native[:m] != plain).sum())
+    phase("host_staging", f"on this host ({CARD}'s): {n} CelebA-like images generated in "
+          f"{t1 - t0:.2f} s, {n} CIFAR-like at 32x32 in {t2 - t1:.2f} s; resize 32 -> 64 by "
+          f"native {t3 - t2:.3f} s for {n}, by the numpy plain version {t4 - t3:.3f} s for "
+          f"{m}; bytes differing on those {m}: {diff}")
+
+
+def adam_phase(torch, np):
+    """The card's capturable Adam (``train/state.py::make_adam``) against the
+    JAX package's ``optax.scale_by_adam`` updates in ``JAX_ADAM_FIXTURE``
+    (written on the CPU by tests/test_torch_adam.py), eagerly and replayed
+    from a CUDA graph: parameters within ``ADAM_TOL``, moments within
+    ``ADAM_TOL`` of their tensor's largest magnitude."""
+    with np.load(JAX_ADAM_FIXTURE) as z:
+        fixture = {k: z[k] for k in z.files}
+    inputs = adam_fixture_inputs()
+    for k, digest in input_digests(inputs).items():
+        check(str(fixture[f"sha256_{k}"]) == digest, f"Adam fixture input {k} is not the one stored")
+    parts = []
+    for replay in (False, True):
+        gaps = adam_gaps(torch, np, fixture, inputs, torch.device("cuda"), replay)
+        label = "replayed" if replay else "eager"
+        check(all(g <= ADAM_TOL for g in gaps.values()),
+              f"capturable Adam ({label}) misses the JAX fixture: {gaps}")
+        parts.append(f"{label}: parameters {gaps['params']:.3g}, mu {gaps['mu']:.3g}, "
+                     f"nu {gaps['nu']:.3g}")
+    phase("adam", f"capturable Adam against optax.scale_by_adam with the rate applied, "
+          f"{ADAM_UPDATES} updates at betas {ADAM_BETAS} and rates {ADAM_RATES} cut to a "
+          f"tenth from update {ADAM_CUT_AT} (largest gaps, parameters absolute, moments "
+          f"relative to their tensor's largest; tolerance {ADAM_TOL}): " + "; ".join(parts))
+
+
+def replay_ms(torch, ex, idx, z, lr, rows=None, concat_on=False, chunks=4) -> float:
+    """ms/step of ``chunks`` calls of a chunk executor (its graph replays,
+    with the inputs' copies), synchronised, after one call."""
+    ex(idx, z, lr, lr, pool_idx=rows, concat_on=concat_on)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(chunks):
+        ex(idx, z, lr, lr, pool_idx=rows, concat_on=concat_on)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / (chunks * idx.shape[0]) * 1e3
+
+
+def in_batch_recycle_phase(torch, np):
+    """``in_batch_recycle`` through the command line across its gate epoch
+    (3), against the same run at steps_per_dispatch=1 bit for bit; then the
+    recycled lanes of each step of a replayed gated chunk, and its time."""
+    from strainer_gan_tpu_torch import cli, get_preset, kernels
+    from strainer_gan_tpu_torch.train.loop import Trainer
+
+    args = ["--preset", "in_batch_recycle", "--epochs", "4", "--max-synth", "4500"]
+    phase("in_batch_recycle", "python -m strainer_gan_tpu_torch.cli " + " ".join(args))
+    tee = Tee(sys.stdout)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        tr, results = cli.run(args)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    staging(tr, "in_batch_recycle")
+    cfg = tr.cfg
+    shipped = get_preset("in_batch_recycle")
+    check(cfg == shipped.replace(train=dataclasses.replace(shipped.train, epochs=4)),
+          "the in_batch_recycle preset was changed beyond --epochs")
+    gate = cfg.strain.fake_concat_start_epoch
+    check(gate == 3 and {k[1] for k in tr._executors} == {False, True},
+          "in_batch_recycle: no capture before and after its gate")
+    eng = tr.engine
+    kept, nv = int(eng.last_batch_mask.sum()), eng.last_batch_valid
+    check(0 < kept < nv and not bool(eng.last_batch_mask[nv:].any()),
+          f"the last gated step kept {kept} of {nv} valid lanes")
+    losses = tr.logger.D_losses + tr.logger.G_losses
+    check(np.all(np.isfinite(losses)), "in_batch_recycle: non-finite losses")
+    phase("in_batch_recycle", f"{tr.dataset.n} images, G/D at nz={cfg.model.nz} "
+          f"ngf={cfg.model.ngf} ndf={cfg.model.ndf}, {cfg.model.compute_dtype}, batch "
+          f"{cfg.data.batch_size}, recycle quantile {cfg.strain.in_batch_recycle_quantile} from "
+          f"epoch {gate}; whole CLI run {total:.2f} s; the last (tail) step recycled "
+          f"{nv - kept} of {nv} valid lanes; kernels {json.dumps(launches)}; "
+          f"{graphs(tr, 'in_batch_recycle')}")
+
+    eager = Trainer(cfg.replace(train=dataclasses.replace(cfg.train, steps_per_dispatch=1)),
+                    dataset=tr.dataset)
+    eager.logger.stream = io.StringIO()
+    eager.setup()
+    for e in range(cfg.train.epochs):
+        eager.run_epoch(e)
+    check(eager.graph_stats["replays"] == 0, "the per-step run replayed a graph")
+    phase("in_batch_recycle", same_run(
+        torch, np, tr, eager, tee.copy.getvalue(), eager.logger.stream.getvalue(),
+        f"in_batch_recycle steps_per_dispatch={cfg.train.steps_per_dispatch} vs 1, epochs "
+        f"0-{gate - 1} plain, {gate} recycling"))
+
+    # a gated chunk again: its recycled lanes step by step, and its time
+    ds, bs, nz, chunk = tr.dataset, cfg.data.batch_size, cfg.model.nz, cfg.train.steps_per_dispatch
+    idx = tr.epoch_indices(9, torch.ones((ds.n,), dtype=torch.bool, device="cuda"), chunk)
+    z = torch.randn((chunk, bs, nz), generator=torch.Generator(device="cuda").manual_seed(3),
+                    device="cuda")
+    lr = cfg.train.lr_d
+    key = (chunk, True, not eng.d_bn_eval, True, cfg.model.compute_dtype)
+    m = tr._executors[key](idx, z, lr, lr)
+    recycled = (bs - m["keep_mask"].sum(1)).tolist()
+    check(all(0 < r < bs for r in recycled), f"recycled lanes per step {recycled}")
+    t_on = replay_ms(torch, tr._executors[key], idx, z, lr)
+    t_off = replay_ms(torch, tr._executors[key[:1] + (False,) + key[2:]], idx, z, lr)
+    phase("in_batch_recycle", f"a replayed gated chunk of {chunk} steps recycled "
+          f"{min(recycled)}-{max(recycled)} (mean {sum(recycled) / len(recycled):.2f}) of {bs} "
+          f"lanes a step; ms/step replayed ({CARD}): recycling {t_on:.3f}, before the gate "
+          f"{t_off:.3f}")
+
+
+def fake_pool_phase(torch, np, out_dir: Path):
+    """``strainer_concat_fast`` (prefilter, outlier pool, loss refinement)
+    through the command line across its gate epoch (3): K2a and K2b score
+    the prefilter and the pool's outliers, K1 the epoch-3 strain; against
+    the same run at steps_per_dispatch=1 bit for bit; a resume from epoch 2
+    to the same epoch-3 mask and pool; replayed ms/step with the pool
+    against the same step without it."""
+    from strainer_gan_tpu_torch import cli, get_preset, kernels
+    from strainer_gan_tpu_torch.checkpoint import restore_checkpoint
+    from strainer_gan_tpu_torch.train import steps as ST
+    from strainer_gan_tpu_torch.train.loop import Trainer
+
+    args = ["--preset", "strainer_concat_fast", "--epochs", "4", "--max-synth", "4096",
+            "--out", str(out_dir), "--checkpoint-every", "1", "--parity-check"]
+    phase("fake_pool", "python -m strainer_gan_tpu_torch.cli " + " ".join(args))
+    tee = Tee(sys.stdout)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        tr, results = cli.run(args)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    staging(tr, "fake_pool")
+    cfg = tr.cfg
+    shipped = get_preset("strainer_concat_fast")
+    check(cfg == shipped.replace(train=dataclasses.replace(shipped.train, epochs=4)),
+          "the strainer_concat_fast preset was changed beyond --epochs")
+    for name in ("bce_scores", "zscore_column_stats", "zscore_row_max"):
+        check(launches[name] >= 1, f"{name} not launched on the fake_pool path")
+    eng = tr.engine
+    n = tr.dataset.n
+    pool, rows = tr.fake_pool, tr.fake_pool_rows
+    outliers = eng.outlier_mask()
+    n_out = int(outliers.sum())
+    num = max(int(n * cfg.strain.fake_pool_fraction), 1)
+    check(tuple(pool.shape) == (num, 64, 64, 3) and pool.dtype == torch.uint8
+          and pool.device.type == "cuda", f"pool {tuple(pool.shape)} {pool.dtype}")
+    check(torch.equal(pool, tr.dataset.gather(rows)), "the pool is not its rows' images")
+    check(n_out == 0 or bool(outliers[rows].all()), "a pool row is not an outlier")
+    check(len(set(rows.tolist())) == min(max(n_out, 1), num),
+          "pool rows repeat before the outliers end")
+    contam = float((tr.dataset.source_id[rows] != 0).float().mean())
+    anime_all = float((tr.dataset.source_id != 0).float().mean())
+    parity = results.get("parity", {})
+    check(parity.get("method") == "loss_percentile" and parity.get("agreement") == 1.0,
+          f"parity report {parity}")
+    check(0 < tr.mask_history[3].sum() < tr.mask_history[2].sum(), "no loss strain at epoch 3")
+    losses = tr.logger.D_losses + tr.logger.G_losses
+    check(np.all(np.isfinite(losses)), "fake_pool: non-finite losses")
+    check({k[1] for k in tr._executors} == {False}, "the pool's gate made a capture key")
+    phase("fake_pool", f"{n} images ({int((tr.dataset.source_id != 0).sum())} anime-like), "
+          f"prefilter kept {int(eng.base_active.sum())}; pool of {num} rows from {n_out} "
+          f"z-score outliers (z >= {cfg.strain.z_threshold}); anime-like share {contam:.4f} "
+          f"in the pool, {anime_all:.4f} in the data; concat from epoch "
+          f"{cfg.strain.fake_concat_start_epoch}; epoch 3 kept {int(tr.mask_history[3].sum())} "
+          f"by the {eng.last_score_path} path; parity {parity.get('agreement')}; whole CLI run "
+          f"{total:.2f} s; kernels {json.dumps(launches)}; {graphs(tr, 'fake_pool')}")
+
+    eager = Trainer(cfg.replace(train=dataclasses.replace(cfg.train, steps_per_dispatch=1)),
+                    dataset=tr.dataset)
+    eager.logger.stream = io.StringIO()
+    eager.setup()
+    for e in range(cfg.train.epochs):
+        eager.run_epoch(e)
+    check(eager.graph_stats["replays"] == 0, "the per-step run replayed a graph")
+    check(torch.equal(eager.fake_pool, pool), "the per-step run built another pool")
+    phase("fake_pool", same_run(
+        torch, np, tr, eager, tee.copy.getvalue(), eager.logger.stream.getvalue(),
+        f"strainer_concat_fast steps_per_dispatch={cfg.train.steps_per_dispatch} vs 1, epochs "
+        "0-2 pool at weight 0, 3 pooled and strained"))
+
+    fresh = Trainer(cfg, dataset=tr.dataset)
+    fresh.logger.stream = io.StringIO()
+    fresh.setup()
+    fresh.fake_pool.zero_()  # the restore must bring the bytes back
+    ptr = fresh.fake_pool.data_ptr()
+    check(restore_checkpoint(str(out_dir / "ckpt"), fresh, epoch=2) == 3,
+          "restore did not resume at 3")
+    check(fresh.fake_pool.data_ptr() == ptr and torch.equal(fresh.fake_pool, pool),
+          "the restored pool moved or differs")
+    fresh.run_epoch(3)
+    torch.cuda.synchronize()
+    diffs = state_diffs(torch, fresh, tr)
+    check(not diffs, f"resumed strainer_concat_fast: {len(diffs)} tensors differ")
+    check(np.array_equal(fresh.mask_history[-1], tr.mask_history[3])
+          and torch.equal(fresh.fake_pool, pool), "resumed: epoch-3 mask or pool differs")
+    phase("fake_pool", f"resumed from epoch 2: epoch-3 mask ({int(fresh.mask_history[-1].sum())}"
+          f" kept), pool and state bit-equal to the uninterrupted run's; "
+          f"{graphs(fresh, 'resumed strainer_concat_fast')}")
+
+    # the pooled step replayed, against loss_concat_fast's step before its
+    # gate (the pool at weight 0) and the same step with no pool at all
+    ds, bs, nz, chunk = tr.dataset, cfg.data.batch_size, cfg.model.nz, cfg.train.steps_per_dispatch
+    idx = tr.epoch_indices(9, eng.base_active, chunk)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    z = torch.randn((chunk, bs, nz), generator=g, device="cuda")
+    pool_rows = torch.stack([tr.step_pool_rows(9, i) for i in range(chunk)])
+    lr = cfg.train.lr_d
+    (ex,) = tr._executors.values()
+    like = {k: v[0] for k, v in ex.out.items()}
+    plain = ST.ChunkedStep(tr.gen, tr.disc, tr.opt_g, tr.opt_d, ds,
+                           tr.scfg._replace(pool_concat=False), chunk, like, mask_on=False,
+                           d_train=ex.d_train, stats=tr.graph_stats,
+                           graph_pool=tr._graph_pool)
+    t_pool = replay_ms(torch, ex, idx, z, lr, pool_rows, True)
+    t_gate_off = replay_ms(torch, ex, idx, z, lr, pool_rows, False)
+    t_plain = replay_ms(torch, plain, idx, z, lr)
+    phase("fake_pool", f"ms/step replayed, batch {bs} ({CARD}): with the pool (2x{bs} fake "
+          f"lanes) {t_pool:.3f}; before the gate (pool lanes at weight 0, as "
+          f"loss_concat_fast's epochs 0-2) {t_gate_off:.3f}; no pool ({bs} fake lanes) "
+          f"{t_plain:.3f}")
 
 
 LOGGER_LINE = re.compile(r"^(\[\d+/\d+\]\[\d+/\d+\]\t|Epoch \d+: )")
@@ -1589,7 +1960,9 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print("  ptxas: " + line.strip())
 
+    host_staging_phase(np)
     results = kernel_phase(torch, port)
+    adam_phase(torch, np)
     jax_fixture_phase(torch, np)
     loss_fixture_phase(torch, np)
     k3 = k3_phase(torch)
@@ -1612,6 +1985,12 @@ def main() -> int:
     bm = batch_mask_phase(torch, np)
     chunked_batch_mask(torch, np, bm)
     del bm
+    in_batch_recycle_phase(torch, np)
+    with tempfile.TemporaryDirectory() as tmp:
+        fake_pool_phase(torch, np, Path(tmp))
+    phase("staging", "host seconds a mixture, native: " + ", ".join(
+        f"{name} {s:.2f} ({n})" for name, n, s in STAGING)
+        + f"; {sum(s for _, _, s in STAGING):.2f} s in all")
     phase("total", f"{time.perf_counter() - t_start:.1f} s from start to here")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -8,9 +8,11 @@ far: the baselines ``basic`` and ``celeba`` (`strainer_gan_tpu/config.py:366-373
 (`config.py:455-464`), the feature-space z-score family ``zscore``,
 ``zscore_elbow`` and ``zscore_dbscan`` (`config.py:411-430`), the
 ``autoencoder`` and loss-space strainers ``loss_gmm`` and ``loss_ensemble``
-(`config.py:431-454`), and ``batch_mask``, the in-step quantile mask
-(`config.py:465-474`).  The other presets come with the slices that run
-them.
+(`config.py:431-454`), ``batch_mask``, the in-step quantile mask
+(`config.py:465-474`), and the fake-concatenation family
+``in_batch_recycle``, ``strainer_gan``, ``fake_concat``,
+``strainer_concat_fast`` and ``loss_concat_fast`` (`config.py:476-521`).
+The other presets come with the slices that run them.
 """
 from __future__ import annotations
 
@@ -213,6 +215,11 @@ _CELEBA_CIFAR_FULL = DataConfig(
     sources=(SourceSpec("celeba"), SourceSpec("cifar10")),
     mixer="shuffled_combined", drop_last=False,
 )
+_CELEBA_ANIME = DataConfig(
+    sources=(SourceSpec("celeba"), SourceSpec("anime")), mixer="combined",
+    drop_last=False,
+)
+_POOL_EVAL = EvalConfig(fid=True, feature_distance=True, wasserstein=True)
 
 _BASIC = ExperimentConfig(
     name="basic",  # `#%basic.py` — vanilla DCGAN, 5 epochs, no strain
@@ -282,6 +289,51 @@ PRESETS: Dict[str, ExperimentConfig] = {
         strain=StrainConfig(method="loss_percentile", prefilter=True,
                             z_threshold=None, start_epoch=3, every_epoch=True,
                             loss_ratio=0.2),
+    ),
+    # -- the fake-concatenation family (`config.py:476-521`); their eval
+    # suites act only under --eval, which the port does not run yet
+    "in_batch_recycle": ExperimentConfig(
+        name="in_batch_recycle",  # `# 상위 10% 제거해서 fake image에 concate.py`
+        data=_CELEBA_DATA,
+        train=TrainConfig(epochs=5),
+        strain=StrainConfig(method="none", fake_concat="in_batch", fake_concat_start_epoch=3,
+                            in_batch_recycle_quantile=0.1),
+    ),
+    "strainer_gan": ExperimentConfig(
+        name="strainer_gan",  # `#strainer gan.py` — TTUR + loss refine + eval suite
+        data=_CELEBA_ANIME,
+        train=TrainConfig(epochs=10, lr_d=1e-4, lr_g=2e-4),
+        strain=StrainConfig(method="loss_percentile", start_epoch=3, every_epoch=True,
+                            loss_ratio=0.2),
+        eval=_POOL_EVAL,
+    ),
+    "fake_concat": ExperimentConfig(
+        name="fake_concat",  # `# fake concate.py` — z-score outlier pool -> fakes
+        data=_CELEBA_ANIME,
+        train=TrainConfig(epochs=10, lr_d=1e-4, lr_g=2e-4),
+        strain=StrainConfig(method="loss_percentile", start_epoch=3, every_epoch=True,
+                            loss_ratio=0.2, fake_concat="pool", fake_pool_fraction=0.1,
+                            fake_concat_start_epoch=3),
+        eval=_POOL_EVAL,
+    ),
+    "strainer_concat_fast": ExperimentConfig(
+        name="strainer_concat_fast",  # `# strainer gan + concate.py` — prefilter+pool
+        data=_CELEBA_ANIME,
+        train=TrainConfig(epochs=10, lr_d=1e-4, lr_g=2e-4),
+        strain=StrainConfig(method="loss_percentile", prefilter=True, z_threshold=5.0,
+                            start_epoch=3, every_epoch=True, loss_ratio=0.2,
+                            fake_concat="pool", fake_pool_fraction=0.1,
+                            fake_concat_start_epoch=3),
+        eval=_POOL_EVAL,
+    ),
+    "loss_concat_fast": ExperimentConfig(
+        name="loss_concat_fast",  # `# loss만 + concate + fast + 10%.py` — no prefilter
+        data=_CELEBA_ANIME,
+        train=TrainConfig(epochs=10, lr_d=1e-4, lr_g=2e-4),
+        strain=StrainConfig(method="loss_percentile", start_epoch=3, every_epoch=True,
+                            loss_ratio=0.2, fake_concat="pool", fake_pool_fraction=0.1,
+                            fake_concat_start_epoch=3),
+        eval=_POOL_EVAL,
     ),
     "final": ExperimentConfig(
         name="final",  # `# final.py` live section — flagship pipeline

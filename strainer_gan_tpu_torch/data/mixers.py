@@ -3,6 +3,8 @@
 A mixture is ``images`` + per-sample ``source_id`` (0 = primary/clean) in
 mixer order; ``shuffled_combined`` is one seeded shuffle of the
 concatenation (`#z_score.py:98-114`), the other mixers keep it in order.
+The images are gathered into that order by the host-staging library
+(``native.gather_u8``; ``gather_plain`` is its plain version).
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ from typing import Optional
 
 import numpy as np
 
+from .. import native
 from ..config import DataConfig
 from .datasets import ArrayDataset, load_source
 
@@ -55,4 +58,9 @@ def build_mixture(cfg: DataConfig, max_synth: Optional[int] = None) -> Mixture:
         rng.shuffle(order)
     elif cfg.mixer not in ("combined", "labeled", "concat"):
         raise ValueError(f"unknown mixer {cfg.mixer!r}")
-    return Mixture(images[order], source_id[order], labels[order])
+    return Mixture(native.gather_u8(images, order), source_id[order], labels[order])
+
+
+def gather_plain(images: np.ndarray, order: np.ndarray) -> np.ndarray:
+    """The plain version of the mixture's gather (``native.gather_u8``)."""
+    return images[order]

@@ -24,7 +24,7 @@ from .config import ExperimentConfig
 from .device import resolve_device
 from .models import build_models
 from .obs.images import make_grid
-from .train.steps import autocast
+from .train.steps import autocast, capturing
 
 
 def _batch_seed(seed: int, i: int) -> int:
@@ -83,7 +83,7 @@ class Sampler:
             return self._out.clone()
         if self._graph is None:
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
+            with capturing(graph):
                 self._out = self._sample_batch(self._z)
             self._graph = graph
         self._graph.replay()

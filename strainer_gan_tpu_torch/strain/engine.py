@@ -16,7 +16,8 @@
 | batch_quantile_mask | inside the train step                  | `# 상위 10%...X.py:280-291`     |
 
 ``prefilter`` runs the z-score strain once before training and makes its
-mask the permanent base; ``on_epoch_start`` runs the one-shot z-score
+mask the permanent base; ``outlier_mask`` gives the fake pool's source
+(the z-score outliers, ``fake_concat="pool"``); ``on_epoch_start`` runs the one-shot z-score
 strain, the ``loss_percentile`` refinement (per-sample D losses over the
 base subset, then the percentile mask within the base; scored in bfloat16
 with a float32 band under ``score_precision="band_bf16"``, or all in
@@ -93,8 +94,8 @@ class StrainerEngine:
         sc = cfg.strain
         if sc.method not in METHODS:
             raise ValueError(f"strain method {sc.method!r} is not ported yet")
-        if sc.fake_concat != "none":
-            raise ValueError("fake_concat is not ported yet")
+        if sc.fake_concat not in ("none", "in_batch", "pool"):
+            raise ValueError(f"unknown fake_concat {sc.fake_concat!r}")
         self.cfg = cfg
         self.sc = sc
         self.disc = disc
@@ -204,6 +205,17 @@ class StrainerEngine:
         if not self.sc.prefilter or self.sc.method == "none":
             return self.active
         return self._strain_base()
+
+    def outlier_mask(self) -> torch.Tensor:
+        """The complement of the fixed z-score inlier mask over the whole
+        dataset, at ``z_threshold`` (5.0 when it is None): the fake pool's
+        source (`engine.py:185-193`, `# fake concate.py:546-548`).  K2a and
+        K2b score the features, which a prefilter has already computed."""
+        sc = self.sc
+        thr = sc.z_threshold if sc.z_threshold is not None else 5.0
+        mask, _ = TH.zscore_fixed_mask(self._features_full(), thr, sc.z_std_mode,
+                                       sc.strict_less)
+        return torch.logical_not(mask)
 
     def _refine(self, loss_ratio: float):
         """The percentile mask over the base, by the band path or in f32

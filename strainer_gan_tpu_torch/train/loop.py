@@ -31,10 +31,18 @@ chunk), the fixed-noise grids every ``sample_every`` iterations, the
 epoch's per-sample loss history and, on epochs of the in-step mask, one
 packed fetch of the contamination counters are the other host reads.
 
+Fake concatenation (`loop.py:271-282, 359-372`): an ``in_batch_recycle``
+config turns the step's in-step keep on from ``fake_concat_start_epoch``
+(the same capture key as ``batch_mask``'s gate); a pool config builds
+``fake_pool`` in ``setup`` from the z-score outliers, and its steps take
+the pool's rows and the gate as inputs: the gate's flip is a flag filled
+before each replay, not a new capture.
+
 ``epoch_indices`` and ``step_noise`` draw an epoch's batch order and a
-step's noise from the Trainer's generator, outside any graph and in the
-per-step order; a test may replace them on an instance to hand the port
-the JAX package's draws.
+step's noise from the Trainer's generator, and ``pool_order`` and
+``step_pool_rows`` the pool's permutations from its own (``pool_rng``),
+outside any graph and in the per-step order; a test may replace them on
+an instance to hand the port the JAX package's draws.
 
 ``kernel_launches`` holds how often each CUDA kernel wrapper launched
 during ``run()``.
@@ -55,12 +63,14 @@ from ..models import build_models
 from ..models.features import build_feature_fn
 from ..obs.metrics import MetricsLogger
 from ..strain.engine import StrainerEngine
+from ..strain.pool import fake_pool_rows
 from ..utils.trees import finite_check
 from .schedules import lr_at
 from .state import make_optimizers
-from .steps import ChunkedStep, autocast, step_config_from, train_step
+from .steps import ChunkedStep, autocast, pool_indices, step_config_from, train_step
 
 BAND_COOLOFF_EVENTS = 5  # f32 strain events after a band overflow (`loop.py:302-308`)
+POOL_SEED_OFFSET = 13  # the fake pool's generator: seeded cfg.train.seed + 13
 
 
 class Trainer:
@@ -70,15 +80,23 @@ class Trainer:
         by default the config's mixture is built and staged."""
         self.device = resolve_device(device)
         self.cfg = cfg
+        # host seconds of building the mixture (synthetic generators, resize
+        # and gather through the host-staging library), when this Trainer
+        # staged its own dataset
+        self.staging_seconds: Optional[float] = None
         if dataset is None:
-            dataset = DeviceDataset(build_mixture(cfg.data, max_synth=max_synth), self.device)
+            t0 = time.perf_counter()
+            mixture = build_mixture(cfg.data, max_synth=max_synth)
+            self.staging_seconds = time.perf_counter() - t0
+            dataset = DeviceDataset(mixture, self.device)
         self.dataset = dataset
         gen, disc = build_models(cfg.model, seed=cfg.train.seed)
         self.gen, self.disc = gen.to(self.device), disc.to(self.device)
         self.opt_g, self.opt_d = make_optimizers(cfg, self.gen, self.disc)
         feature_fn = None
         s = cfg.strain
-        if s.method.startswith("zscore") or (s.method == "loss_percentile" and s.prefilter):
+        if s.method.startswith("zscore") or s.fake_concat == "pool" or (
+                s.method == "loss_percentile" and s.prefilter):
             feature_fn = build_feature_fn(s.feature_extractor, cfg.model.nc, self.device)
         self.engine = StrainerEngine(cfg, self.disc, self.dataset, feature_fn=feature_fn,
                                      score_batch=cfg.strain.score_batch)
@@ -86,6 +104,15 @@ class Trainer:
         self.logger = MetricsLogger(log_every=cfg.train.log_every)
         # one explicit generator for the epoch permutations and the noise
         self.rng = torch.Generator(device=self.device).manual_seed(cfg.train.seed)
+        # the fake pool's permutations (its build and each step's rows), from
+        # their own generator, so the noise stream is the same with or
+        # without a pool
+        self.pool_rng = torch.Generator(device=self.device).manual_seed(
+            cfg.train.seed + POOL_SEED_OFFSET)
+        # the fake-concat configs' device-resident uint8 outlier pool, built
+        # by setup() (not the CUDA graphs' memory pool, ``_graph_pool``)
+        self.fake_pool: Optional[torch.Tensor] = None
+        self.fake_pool_rows: Optional[torch.Tensor] = None  # its dataset indices
         # the grids' noise, from its own seeded generator; a caller may
         # replace it (the tests hand both packages the same noise)
         self.fixed_noise = torch.randn(
@@ -101,7 +128,7 @@ class Trainer:
         self._stats = None  # (n_active, true-positive removals, n_contaminants)
         # chunk executors by capture key, their shared graph pool and counts
         self._executors: Dict[tuple, ChunkedStep] = {}
-        self._pool = None
+        self._graph_pool = None
         self.graph_stats = dict(captures=0, replays=0, capture_s=[], instantiate_s=[])
         for opt in (self.opt_g, self.opt_d):
             # a loaded state rebinds the tensors a captured graph reads
@@ -113,21 +140,27 @@ class Trainer:
 
     def _add_executor(self, key: tuple, like: Dict) -> None:
         chunk, mask_on, d_train, stem_share, _ = key
-        if self.device.type == "cuda" and self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
+        if self.device.type == "cuda" and self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
         self._executors[key] = ChunkedStep(
             self.gen, self.disc, self.opt_g, self.opt_d, self.dataset, self.scfg, chunk, like,
             mask_on=mask_on, d_train=d_train, stats=self.graph_stats, stem_share=stem_share,
-            pool=self._pool)
+            graph_pool=self._graph_pool, fake_pool=self.fake_pool)
 
     def setup(self) -> None:
-        """Pre-training strain (the z-score prefilter).  Not logged as a
-        strain event, as in the JAX package (`strainer_gan_tpu/train/loop.py:271-277`):
-        epoch 0 finds the prefilter's mask already active, so ``run_epoch``
+        """Pre-training strain (the z-score prefilter), then the fake pool of
+        a pool config from the z-score outliers (`strainer_gan_tpu/train/loop.py:271-282`).
+        The prefilter is not logged as a strain event, as in the JAX
+        package: epoch 0 finds its mask already active, so ``run_epoch``
         only fetches its count."""
         s = self.cfg.strain
         if s.prefilter and s.method != "none":
             self.engine.prefilter()
+        if s.fake_concat == "pool":
+            self.fake_pool_rows = fake_pool_rows(self.engine.outlier_mask(),
+                                                 s.fake_pool_fraction,
+                                                 perm=self.pool_order(self.dataset.n))
+            self.fake_pool = self.dataset.gather(self.fake_pool_rows)
 
     def _fetch_epoch_stats(self, active: torch.Tensor):
         """One host fetch; an overflow of the band path puts the engine on
@@ -167,11 +200,24 @@ class Trainer:
         return torch.randn((self.cfg.data.batch_size, self.cfg.model.nz), generator=self.rng,
                            device=self.device)
 
+    def pool_order(self, n: int) -> torch.Tensor:
+        """A random permutation of ``n`` (the pool's build draws one over the
+        dataset, each pool step one over the pool's rows)."""
+        return torch.randperm(n, generator=self.pool_rng, device=self.device)
+
+    def step_pool_rows(self, epoch: int, i: int) -> torch.Tensor:
+        """(batch_size,) fake-pool rows of step ``i`` of ``epoch``."""
+        return pool_indices(self.pool_order(self.fake_pool.shape[0]),
+                            self.cfg.data.batch_size)
+
     def run_epoch(self, epoch: int) -> Dict:
         cfg, s, t = self.cfg, self.cfg.strain, self.cfg.train
         t0 = time.perf_counter()
         mask_on = s.method == "batch_quantile_mask" and epoch >= s.mask_start_epoch
-        if not mask_on:
+        recycle_on = s.fake_concat == "in_batch" and epoch >= s.fake_concat_start_epoch
+        concat_on = s.fake_concat == "pool" and epoch >= s.fake_concat_start_epoch
+        gate = mask_on or recycle_on  # the step's in-step keep (`loop.py:359-363`)
+        if not gate:
             # stale-state guard (`loop.py:337-346`): the parity report must
             # not read an earlier gated epoch's in-step scores
             eng = self.engine
@@ -203,7 +249,8 @@ class Trainer:
         d_train = not self.engine.d_bn_eval
         sampling = bool(t.sample_every)
         chunk = max(1, t.steps_per_dispatch)
-        key = (chunk, mask_on, d_train, True, self.scfg.compute_dtype)
+        key = (chunk, gate, d_train, True, self.scfg.compute_dtype)
+        pooled = self.fake_pool is not None
         losses = []  # per-sample real losses of the epoch's steps, on the device
         # contamination counters of the in-step mask, summed on the device
         counters = torch.zeros((2,), dtype=torch.int64, device=self.device)
@@ -219,7 +266,9 @@ class Trainer:
             metrics = train_step(
                 self.gen, self.disc, self.opt_g, self.opt_d, x,
                 self.dataset.source_id[ids], z, lr_g, lr_d, self.scfg, d_train=d_train,
-                lane_count=lanes, mask_on=mask_on,
+                lane_count=lanes, mask_on=gate, fake_pool=self.fake_pool,
+                pool_idx=self.step_pool_rows(epoch, i) if pooled else None,
+                concat_on=concat_on,
             )
             self.logger.log_step(epoch, t.epochs, i, steps, metrics)
             if mask_on:
@@ -229,7 +278,10 @@ class Trainer:
         def run_chunk(i, ex):
             nonlocal metrics, lanes
             z = torch.stack([self.step_noise(epoch, i + j) for j in range(chunk)])
-            m = ex(idx[i:i + chunk], z, lr_g, lr_d)  # a copy: the next chunk reuses the buffers
+            rows = (torch.stack([self.step_pool_rows(epoch, i + j) for j in range(chunk)])
+                    if pooled else None)
+            # a copy: the next chunk reuses the buffers
+            m = ex(idx[i:i + chunk], z, lr_g, lr_d, pool_idx=rows, concat_on=concat_on)
             self.logger.log_chunk(epoch, t.epochs, i, steps, m, chunk)
             if mask_on:
                 counters.add_(torch.stack([m["n_contam"].sum(), m["n_filtered_contam"].sum()]))
@@ -272,12 +324,12 @@ class Trainer:
             # one host fetch per epoch for both sums (`loop.py:719-727`)
             total_contam, filtered_contam = counters.tolist()
             self.logger.log_contamination(epoch, filtered_contam, total_contam)
-            if metrics is not None:
-                # the last step's scores and mask for the parity report; a
-                # partial tail's valid lanes are its first ``lanes``
-                self.engine.last_batch_scores = metrics["score_probs"]
-                self.engine.last_batch_mask = metrics["keep_mask"]
-                self.engine.last_batch_valid = bs if lanes is None else lanes
+        if gate and metrics is not None:
+            # the last step's scores and mask for the parity report; a
+            # partial tail's valid lanes are its first ``lanes``
+            self.engine.last_batch_scores = metrics["score_probs"]
+            self.engine.last_batch_mask = metrics["keep_mask"]
+            self.engine.last_batch_valid = bs if lanes is None else lanes
         if losses:
             # the reference's per-epoch ``epoch_losses`` (`# 1,2,8.py:300-303`)
             self.epoch_loss_history.append(torch.cat(losses).cpu().numpy())

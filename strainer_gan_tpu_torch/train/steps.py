@@ -21,6 +21,12 @@ forward both start from its output, and autograd carries the real side's
 gradient back through it (the JAX step's captured ``stem_vjp``,
 `steps.py:298-307`).
 
+Fake concatenation (`steps.py:198-236`): with ``in_batch_recycle`` the
+same in-step keep (at ``recycle_quantile``) recycles the reals it drops as
+fakes in D's fake batch; with ``pool_concat`` D's fake side gains a batch
+of the device-resident outlier pool, gathered and normalised inside the
+step from the pool rows the caller draws (see ``step_body``).
+
 ``lane_count`` gives the partial tail batch of a drop_last=False epoch
 (`steps.py:116-128`): lanes >= lane_count carry weight 0 in every loss mean,
 every BatchNorm statistic (G's and D's), the in-step quantile and the
@@ -32,6 +38,7 @@ to the host.
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
 from typing import Dict, NamedTuple, Optional
 
@@ -49,6 +56,9 @@ class StepConfig(NamedTuple):
     fake_label: float = 0.0
     batch_mask: bool = False  # the in-step quantile mask (batch_quantile_mask)
     mask_quantile: float = 0.1
+    in_batch_recycle: bool = False  # fake_concat="in_batch"
+    recycle_quantile: float = 0.1
+    pool_concat: bool = False  # fake_concat="pool"
     nz: int = 100
     # "bfloat16" runs the forwards under autocast on the card; parameters,
     # BN statistics, losses and Adam stay float32
@@ -57,13 +67,36 @@ class StepConfig(NamedTuple):
 
 def step_config_from(cfg) -> StepConfig:
     t, s = cfg.train, cfg.strain
-    if t.g_before_d or s.fake_concat != "none" or cfg.model.d_dropout > 0:
-        raise ValueError("the G-first step, fake concatenation and D dropout "
-                         "are not ported yet")
+    if t.g_before_d or cfg.model.d_dropout > 0:
+        raise ValueError("the G-first step and D dropout are not ported yet")
+    if s.fake_concat not in ("none", "in_batch", "pool"):
+        raise ValueError(f"unknown fake_concat {s.fake_concat!r}")
     return StepConfig(d_loss_reduction=t.d_loss_reduction, real_label=t.real_label,
                       fake_label=t.fake_label, batch_mask=s.method == "batch_quantile_mask",
-                      mask_quantile=s.mask_quantile, nz=cfg.model.nz,
+                      mask_quantile=s.mask_quantile,
+                      in_batch_recycle=s.fake_concat == "in_batch",
+                      recycle_quantile=s.in_batch_recycle_quantile,
+                      pool_concat=s.fake_concat == "pool", nz=cfg.model.nz,
                       compute_dtype=cfg.model.compute_dtype)
+
+
+@contextlib.contextmanager
+def capturing(graph: "torch.cuda.CUDAGraph", pool=None):
+    """``torch.cuda.graph(graph, pool)`` with Python's cyclic garbage
+    collector held off.  A collection inside a capture can free an older
+    graph (a Trainer is a reference cycle: its optimizers' load hooks hold
+    it), and destroying a graph is an operation the capturing stream
+    refuses: the capture fails.  So dead cycles are collected before the
+    capture and none during it."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def autocast(x: torch.Tensor, compute_dtype: str):
@@ -83,14 +116,24 @@ def train_step(gen: torch.nn.Module, disc: torch.nn.Module,
                x: torch.Tensor, source_id: torch.Tensor, z: torch.Tensor,
                lr_g: float, lr_d: float, scfg: StepConfig, d_train: bool = True,
                lane_count: Optional[int] = None, mask_on: bool = False,
-               stem_share: bool = True) -> Dict[str, torch.Tensor]:
+               stem_share: bool = True, fake_pool: Optional[torch.Tensor] = None,
+               pool_idx: Optional[torch.Tensor] = None,
+               concat_on: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """One D-first step on a normalised NCHW batch ``x`` at rates ``lr_g``,
     ``lr_d``; updates the modules and optimizers in place and returns the
     metrics of `steps.py:347-360`.  See ``step_body``."""
     set_lr(opt_g, lr_g)
     set_lr(opt_d, lr_d)
     return step_body(gen, disc, opt_g, opt_d, x, source_id, z, scfg, d_train=d_train,
-                     lane_count=lane_count, mask_on=mask_on, stem_share=stem_share)
+                     lane_count=lane_count, mask_on=mask_on, stem_share=stem_share,
+                     fake_pool=fake_pool, pool_idx=pool_idx, concat_on=concat_on)
+
+
+def pool_indices(perm: torch.Tensor, b: int) -> torch.Tensor:
+    """The ``b`` pool rows of one step from a permutation of the pool's
+    rows, wrapping when the pool is smaller than the batch
+    (`strainer_gan_tpu/train/steps.py:212-216`)."""
+    return perm[torch.arange(b, device=perm.device) % perm.shape[0]]
 
 
 def step_body(gen: torch.nn.Module, disc: torch.nn.Module,
@@ -98,18 +141,36 @@ def step_body(gen: torch.nn.Module, disc: torch.nn.Module,
               x: torch.Tensor, source_id: torch.Tensor, z: torch.Tensor,
               scfg: StepConfig, d_train: bool = True,
               lane_count: Optional[int] = None, mask_on: bool = False,
-              stem_share: bool = True) -> Dict[str, torch.Tensor]:
+              stem_share: bool = True, fake_pool: Optional[torch.Tensor] = None,
+              pool_idx: Optional[torch.Tensor] = None,
+              concat_on: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """The step at the optimizers' current rates: what ``ChunkedStep``
     captures.  It reads nothing back to the host and makes no tensor from
     host data, so a CUDA graph can capture it.
 
     ``d_train=False`` is the bn_eval_after_score quirk: D's BatchNorms use
     (and keep) their running statistics.  ``mask_on`` gates the in-step
-    mask of a ``batch_mask`` config (the epoch has reached
-    ``mask_start_epoch``); ``stem_share=False`` runs the scoring and the
-    real forward through the whole of D each, for the A/B test only."""
+    keep of a ``batch_mask`` or an ``in_batch_recycle`` config (the epoch
+    has reached ``mask_start_epoch`` or ``fake_concat_start_epoch``);
+    ``stem_share=False`` runs the scoring and the real forward through the
+    whole of D each, for the A/B test only.
+
+    Fake concatenation (`strainer_gan_tpu/train/steps.py:198-236`):
+
+    * ``in_batch_recycle``: the reals the keep drops replace the fakes in
+      their slots of D's fake batch, which is weighted by the valid lanes;
+      G's BatchNorms see the kept slots only, and G's loss runs on the same
+      combined batch, so the recycled lanes carry no G gradient.
+    * ``pool_concat``: D's fake side is 2b lanes, the b generated images and
+      b images of ``fake_pool`` (uint8 NHWC on the device), rows
+      ``pool_idx`` (b,), gathered and normalised here; the pool lanes weigh
+      ``concat_on`` (a 0-d float32 device flag, 1 from the gate epoch on,
+      else 0) times the generated lanes' weights, and D_G_z1 covers the
+      generated lanes only.  G trains on its generated fakes alone."""
     b = x.shape[0]
     dev = x.device
+    if scfg.pool_concat and not isinstance(concat_on, torch.Tensor):
+        concat_on = torch.full((), float(bool(concat_on)), device=dev)  # a fill, no copy
     valid = None
     valid_w = None
     if lane_count is not None:
@@ -119,7 +180,8 @@ def step_body(gen: torch.nn.Module, disc: torch.nn.Module,
     amp = autocast(x, scfg.compute_dtype)
 
     # ---- in-step strain: score the real batch, keep the top 1 - q
-    masked = scfg.batch_mask and mask_on
+    masked = (scfg.batch_mask or scfg.in_batch_recycle) and mask_on
+    q = scfg.mask_quantile if scfg.batch_mask else scfg.recycle_quantile
     keep = torch.ones((b,), dtype=torch.bool, device=dev) if valid is None else valid
     h_real = None
     if masked:
@@ -131,11 +193,11 @@ def step_body(gen: torch.nn.Module, disc: torch.nn.Module,
                             else disc(x, valid_w, train=d_train))
         probs_s = L.sigmoid_ftz(logits_s)  # as XLA computes jax.nn.sigmoid
         if valid is None:
-            keep = probs_s >= S.quantile(probs_s, scfg.mask_quantile)
+            keep = probs_s >= S.quantile(probs_s, q)
         else:
             # a partial tail: the quantile of the valid lanes only, which is
             # torch.quantile on the smaller batch
-            keep = (probs_s >= S.masked_quantile(probs_s, valid, scfg.mask_quantile)) & valid
+            keep = (probs_s >= S.masked_quantile(probs_s, valid, q)) & valid
     w_real = w_fake = keep.to(torch.float32) if masked else valid_w
 
     # ---- G forward, once; its graph serves the G step below.  G's BN
@@ -144,23 +206,46 @@ def step_body(gen: torch.nn.Module, disc: torch.nn.Module,
     with amp:
         fake = gen(z, w_fake, train=True)
 
+    recycle = scfg.in_batch_recycle and masked
+
+    def fake_batch(imgs):
+        """D's fake-side batch, its lane weights and, with the pool, the
+        weights of the lanes G made."""
+        if recycle:
+            use_real = torch.logical_not(keep)
+            if valid is not None:
+                use_real = torch.logical_and(use_real, valid)  # pads stay fake slots
+            combined = torch.where(use_real.view(-1, 1, 1, 1), x.to(imgs.dtype), imgs)
+            return combined, valid_w, None
+        if scfg.pool_concat:
+            pool_x = normalize_u8(fake_pool.index_select(0, pool_idx), torch.float32)
+            gen_w = torch.ones((b,), dtype=torch.float32, device=dev) if valid_w is None \
+                else valid_w
+            w = torch.cat([gen_w, concat_on * gen_w])
+            return torch.cat([imgs, pool_x.to(imgs.dtype)]), w, torch.cat(
+                [gen_w, torch.zeros_like(gen_w)])
+        return imgs, w_fake, None
+
     # ---- D update: real, then detached fakes
     opt_d.zero_grad(set_to_none=True)
+    fake_d, w_fd, gen_slot = fake_batch(fake.detach())
     with amp:
         out_r = (disc.head(h_real, w_real, train=d_train) if h_real is not None
                  else disc(x, w_real, train=d_train))
-        out_f = disc(fake.detach(), w_fake, train=d_train)
+        out_f = disc(fake_d, w_fd, train=d_train)
     per_real = L.bce_from_logits(out_r, real_t)
     per_fake = L.bce_from_logits(out_f, fake_t)
-    err_d = L.d_loss(per_real, per_fake, scfg.d_loss_reduction, w_real, w_fake)
+    err_d = L.d_loss(per_real, per_fake, scfg.d_loss_reduction, w_real, w_fd)
     err_d.backward()
     opt_d.step()
 
-    # ---- G update through the updated D
+    # ---- G update through the updated D: on the recycled batch, or on the
+    # generated fakes alone
     opt_g.zero_grad(set_to_none=True)
+    fake_g, w_fg = fake_batch(fake)[:2] if recycle else (fake, w_fake)
     with amp:
-        out_g = disc(fake, w_fake, train=d_train)
-    err_g = L.weighted_mean(L.bce_from_logits(out_g, real_t), w_fake)
+        out_g = disc(fake_g, w_fg, train=d_train)
+    err_g = L.weighted_mean(L.bce_from_logits(out_g, real_t), w_fg)
     err_g.backward(inputs=list(gen.parameters()))
     opt_g.step()
 
@@ -173,10 +258,11 @@ def step_body(gen: torch.nn.Module, disc: torch.nn.Module,
         metrics = dict(
             errD=err_d.detach(), errG=err_g.detach(),
             errD_real=L.weighted_mean(per_real, w_real).detach(),
-            errD_fake=L.weighted_mean(per_fake, w_fake).detach(),
+            errD_fake=L.weighted_mean(per_fake, w_fd).detach(),
             D_x=L.weighted_mean(torch.sigmoid(out_r), w_real),
-            D_G_z1=L.weighted_mean(torch.sigmoid(out_f), w_fake),
-            D_G_z2=L.weighted_mean(torch.sigmoid(out_g), w_fake),
+            D_G_z1=L.weighted_mean(torch.sigmoid(out_f),
+                                   gen_slot if scfg.pool_concat else w_fd),
+            D_G_z2=L.weighted_mean(torch.sigmoid(out_g), w_fg),
             real_loss_per_sample=per_real.detach(),
             keep_mask=keep,
             # the scores the mask came from, for the parity report
@@ -202,7 +288,11 @@ class ChunkedStep:
     Static inputs: ``idx`` (chunk, batch) sample indices and ``z`` (chunk,
     batch, nz) noise, filled from the caller's draws at each call; each
     step gathers and normalises its batch from the dataset inside the
-    chunk, as the JAX scan's ``jnp.take`` does.  Static outputs: the
+    chunk, as the JAX scan's ``jnp.take`` does.  With a ``fake_pool`` (the
+    pool configs), also ``pool_idx`` (chunk, batch), each step's pool rows,
+    and ``concat_on``, the pool's 0-d float32 gate flag: both filled before
+    each call, so the gate's flip at ``fake_concat_start_epoch`` needs no
+    new capture (it is traced, not static, in JAX: `steps.py:370-372`).  Static outputs: the
     step's metrics stacked (chunk, ...) in ``out``, shaped like ``like``
     (the metrics of a step already run with the same key: the capture's
     warm-up, so Adam's state and cuDNN's plans exist before a capture).
@@ -211,9 +301,9 @@ class ChunkedStep:
     Each call fills the optimizers' rate tensors (``state.set_lr``), which
     the replay reads.  A graph keeps the addresses of everything it reads;
     ``__call__`` checks before each replay that the parameters, buffers,
-    optimizer state and rates are still the tensors it captured and raises
-    if one was rebound (the Trainer drops its captures whenever an
-    optimizer loads a state, so this never fires on its path).  ``stats``
+    optimizer state, rates and the fake pool are still the tensors it
+    captured and raises if one was rebound (the Trainer drops its captures
+    whenever an optimizer loads a state, so this never fires on its path).  ``stats``
     is the owner's dict of counts, shared by its executors: ``captures``,
     ``replays``, and each capture's ``capture_s`` (the host's time to
     record the chunk) and ``instantiate_s``.
@@ -221,16 +311,19 @@ class ChunkedStep:
 
     def __init__(self, gen, disc, opt_g, opt_d, dataset, scfg: StepConfig, chunk: int,
                  like: Dict[str, torch.Tensor], *, mask_on: bool, d_train: bool,
-                 stats: Dict, stem_share: bool = True, pool=None):
+                 stats: Dict, stem_share: bool = True, graph_pool=None,
+                 fake_pool: Optional[torch.Tensor] = None):
         self.gen, self.disc, self.opt_g, self.opt_d = gen, disc, opt_g, opt_d
         self.dataset, self.scfg, self.chunk = dataset, scfg, chunk
         self.mask_on, self.d_train, self.stem_share = mask_on, d_train, stem_share
-        self.pool = pool
+        self.graph_pool, self.fake_pool = graph_pool, fake_pool
         self.stats = stats
         self.device = dev = dataset.device
         b = like["real_loss_per_sample"].shape[0]
         self.idx = torch.zeros((chunk, b), dtype=torch.int64, device=dev)
         self.z = torch.zeros((chunk, b, scfg.nz), dtype=torch.float32, device=dev)
+        self.pool_idx = torch.zeros((chunk, b), dtype=torch.int64, device=dev)
+        self.concat_on = torch.zeros((), dtype=torch.float32, device=dev)
         self.out = {k: torch.zeros((chunk,) + tuple(v.shape), dtype=v.dtype, device=dev)
                     for k, v in like.items()}
         self.graph = None
@@ -243,13 +336,16 @@ class ChunkedStep:
             m = step_body(self.gen, self.disc, self.opt_g, self.opt_d,
                           normalize_u8(ds.gather(ids), torch.float32), ds.source_id[ids],
                           self.z[j], self.scfg, d_train=self.d_train, mask_on=self.mask_on,
-                          stem_share=self.stem_share)
+                          stem_share=self.stem_share, fake_pool=self.fake_pool,
+                          pool_idx=self.pool_idx[j], concat_on=self.concat_on)
             for k, v in m.items():
                 self.out[k][j].copy_(v)
 
     def _pointers(self):
         ts = [*self.gen.parameters(), *self.gen.buffers(), *self.disc.parameters(),
               *self.disc.buffers(), self.dataset.images, self.dataset.source_id]
+        if self.fake_pool is not None:
+            ts.append(self.fake_pool)
         for opt in (self.opt_g, self.opt_d):
             ts += [g["lr"] for g in opt.param_groups]
             ts += [t for st in opt.state.values() for t in st.values()
@@ -258,7 +354,7 @@ class ChunkedStep:
 
     def _capture(self) -> None:
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool):
+        with capturing(graph, self.graph_pool):
             t0 = time.perf_counter()
             self._body()
             t1 = time.perf_counter()
@@ -269,12 +365,18 @@ class ChunkedStep:
         self.graph = graph
         self._ptrs = self._pointers()
 
-    def __call__(self, idx: torch.Tensor, z: torch.Tensor, lr_g: float,
-                 lr_d: float) -> Dict[str, torch.Tensor]:
+    def __call__(self, idx: torch.Tensor, z: torch.Tensor, lr_g: float, lr_d: float,
+                 pool_idx: Optional[torch.Tensor] = None,
+                 concat_on: bool = False) -> Dict[str, torch.Tensor]:
         """Run the chunk on ``idx`` (chunk, batch) and ``z`` (chunk, batch, nz)
-        at rates ``lr_g``, ``lr_d``; returns the stacked metrics."""
+        at rates ``lr_g``, ``lr_d`` (with a fake pool: on its rows
+        ``pool_idx`` (chunk, batch), gated by ``concat_on``); returns the
+        stacked metrics."""
         self.idx.copy_(idx)
         self.z.copy_(z)
+        if self.fake_pool is not None:
+            self.pool_idx.copy_(pool_idx)
+            self.concat_on.fill_(float(concat_on))
         set_lr(self.opt_g, lr_g)
         set_lr(self.opt_d, lr_d)
         if self.device.type == "cuda":

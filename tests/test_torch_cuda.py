@@ -28,6 +28,11 @@ gate, an LR cut (read from the rate tensor, no new capture) and the
 captures, and a graph whose tensors were rebound refuses to replay; a step
 that cannot be captured raises instead of running eagerly.  The
 ``Sampler``'s replayed batches equal its eager ones.
+
+The capturable Adam meets the JAX package's updates
+(``tests/fixtures/torch_port_jax_adam.npz``) at 1e-5, eagerly and
+replayed; the recycling and pooled fake-concat steps replay bit-equal to
+eager steps across their gates.
 """
 import numpy as np
 import pytest
@@ -506,6 +511,99 @@ def test_sampler_replay_equals_eager(cuda_device):
         assert torch.equal(out, s._sample_batch(z.to(cuda_device)))
     imgs = s.sample(40, seed=1)
     assert imgs.shape == (40, 64, 64, 3) and imgs.dtype == np.uint8
+
+
+def _smoke():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("replay", [False, True], ids=["eager", "replayed"])
+def test_capturable_adam_matches_jax_fixture(cuda_device, replay):
+    """``make_adam``'s capturable Adam (bias correction on the device in
+    float32, the rate a device tensor) against the JAX package's
+    ``optax.scale_by_adam`` updates in ``tests/fixtures/torch_port_jax_adam.npz``
+    (tests/test_torch_adam.py), at the presets' betas and torch's defaults,
+    two rates and an LR cut between updates: parameters within 1e-5, the
+    moments within 1e-5 of their tensor's largest magnitude; eagerly and
+    with every update after the first replayed from one captured step."""
+    smoke = _smoke()
+    with np.load(smoke.JAX_ADAM_FIXTURE) as f:
+        fixture = dict(f)
+    gaps = smoke.adam_gaps(torch, np, fixture, smoke.adam_fixture_inputs(), cuda_device,
+                           replay=replay)
+    assert all(g <= smoke.ADAM_TOL for g in gaps.values()), gaps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["in_batch_recycle", "loss_concat_fast"])
+def test_fake_concat_replay_equals_eager(cuda_device, preset):
+    """The fake-concat steps, gate at epoch 1: steps_per_dispatch=4 (graph
+    replays) against =1 (eager), bit for bit.  Recycling makes a second
+    capture at its gate (the in-step keep); the pool's gate is a flag
+    filled before each replay, so the pooled run captures once, and both
+    runs train on the same device-resident pool."""
+    import dataclasses
+
+    runs = []
+    for spd in (4, 1):
+        cfg = _graph_cfg(preset, spd)
+        cfg = cfg.replace(strain=dataclasses.replace(cfg.strain, fake_concat_start_epoch=1,
+                                                     start_epoch=5))
+        tr = _graph_trainer(cfg)
+        for e in range(2):
+            tr.run_epoch(e)
+        runs.append(tr)
+    a, b = runs
+    _assert_bit_equal(a, b)
+    assert a.graph_stats["replays"] > 0 and b.graph_stats["replays"] == 0
+    if preset == "in_batch_recycle":
+        assert a.graph_stats["captures"] == 2
+        assert torch.equal(a.engine.last_batch_mask, b.engine.last_batch_mask)
+        assert int(a.engine.last_batch_mask.sum()) < a.engine.last_batch_valid
+    else:
+        assert a.graph_stats["captures"] == 1
+        assert a.fake_pool.is_cuda and torch.equal(a.fake_pool, b.fake_pool)
+
+
+@pytest.mark.cuda
+def test_capture_holds_the_collector_off(cuda_device, monkeypatch):
+    """A Trainer is a reference cycle (its optimizers' load hooks hold it),
+    so only Python's collector frees a dead one and its graphs; a collection
+    inside a later capture would destroy a graph there, which the capturing
+    stream refuses (``chip_smoke.py`` failed so once, in ``batch_mask``'s
+    capture).  ``steps.capturing`` collects before the capture and holds
+    the collector off during it: inside the capture the dead Trainer is
+    gone and the collector is off, and the capture succeeds."""
+    import gc
+    import weakref
+
+    from strainer_gan_tpu_torch.train import steps as ST
+
+    old = _graph_trainer(_graph_cfg("basic", 4, sample_every=0))
+    old.run_epoch(0)
+    assert old.graph_stats["captures"] == 1
+    dead = weakref.ref(old)
+    del old  # cyclic garbage from here on
+    body, seen = ST.ChunkedStep._body, []
+
+    def watched(self):
+        seen.append((gc.isenabled(), dead() is None))
+        body(self)
+
+    monkeypatch.setattr(ST.ChunkedStep, "_body", watched)
+    tr = _graph_trainer(_graph_cfg("basic", 4, sample_every=0))
+    tr.run_epoch(0)
+    assert seen == [(False, True)]  # the capture's only body call
+    assert gc.isenabled()
+    assert tr.graph_stats["captures"] == 1 and tr.graph_stats["replays"] > 0
 
 
 @pytest.mark.cuda
