@@ -104,6 +104,27 @@ script exits non-zero without printing its result line:
    ``steps_per_dispatch=1`` bit-equal; a resume from epoch 2 to the same
    epoch-3 mask, pool and state; ms/step replayed with the pool, before
    its gate, and without it.
+13. mnist8: through the command line with ``--epochs 2`` (the G-first
+   MLP step at full width, 100-256-512-1024-784 / 784-1024-512-256-1, the
+   auto batch of 64 from the staged digits): the same run at
+   ``steps_per_dispatch=1`` bit-equal, its 28x28 grey grids read back,
+   ms/step replayed and eager, and a ``Sampler`` serving its checkpoint
+   (ms a batch of 64, replayed and eager, replayed batches bit-equal).
+14. mnist_full: through the command line with ``--epochs 100
+   --parity-check``: the 1-channel ResNet18 z-score prefilter (K2a and
+   K2b at ``numpy_eps``, launched on the path) with a mask equal to the
+   plain path's on the card and both kernels timed at its shape; the
+   D-first dropout step, G with BatchNorm1d, labels 0.9/0.1 (a replayed
+   chunk bit-equal to its 32 eager steps on the same noise and keep masks,
+   consecutive replays with fresh masks, ms/step replayed and eager); the
+   periodic FID at epoch 100 (real and contaminant, finite, with the
+   seconds of the activation passes and of the square root, and its
+   branch); the parity report at 1.0.
+15. fid: the FID chain on ``tests/fixtures/backbones.npz`` (InceptionV3
+   on synthetic weights, float32 with TF32 off): activations within 2e-3
+   of the fixture, the FID within 2e-2 relative of its scipy value, and
+   the Newton-Schulz trace within 1e-3 of eigh's on a well-conditioned
+   2048-dimensional pair, each timed.
 
 Before the fixtures, the adam phase holds the card's capturable Adam
 (``train/state.py::make_adam``) to the JAX package's ``optax.scale_by_adam``
@@ -148,6 +169,10 @@ Deviations from the presets, each for a reason:
   run's first step, a sample point, a warm-up step and a chunk of 32).
 - ``strainer_concat_fast``: ``--epochs 4`` (epoch 3 is its gate and first
   loss strain) and ``--max-synth 4096`` per source (8,192 images).
+- ``mnist8``: ``--epochs 2`` of 300 (every epoch is the same step).
+- ``mnist_full``: ``--epochs 100`` of 300: the first periodic FID, at its
+  shipped cadence of 100 epochs.  Its data is whole (three synthetic
+  60,000-image digit sources, as shipped).
 
 The second-to-last lines are one JSON object of per-kernel results and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -732,10 +757,11 @@ def k3_phase(torch):
                 ms_222599=big[0], plain_ms_222599=big[1], bound_ms_222599=big[2])
 
 
-def check_png(path: Path, width: int, height: int) -> None:
-    """``path`` is a whole 8-bit RGB PNG of ``width`` x ``height``: the
-    signature, every chunk's CRC, IHDR, IEND, and IDAT inflating to one
-    filter byte plus ``3 * width`` bytes per row."""
+def check_png(path: Path, width: int, height: int, channels: int = 3) -> None:
+    """``path`` is a whole 8-bit RGB (or, with ``channels=1``, greyscale)
+    PNG of ``width`` x ``height``: the signature, every chunk's CRC, IHDR,
+    IEND, and IDAT inflating to one filter byte plus ``channels * width``
+    bytes per row."""
     import struct
     import zlib
 
@@ -753,9 +779,11 @@ def check_png(path: Path, width: int, height: int) -> None:
             idat += body
         end = tag == b"IEND"
         pos += 12 + length
-    check(ihdr is not None and ihdr[:4] == (width, height, 8, 2) and end,
-          f"{path.name}: header {ihdr}, want {width}x{height} RGB 8-bit, ending in IEND")
-    check(len(zlib.decompress(idat)) == height * (1 + 3 * width), f"{path.name}: pixel data")
+    color = {3: 2, 1: 0}[channels]
+    check(ihdr is not None and ihdr[:4] == (width, height, 8, color) and end,
+          f"{path.name}: header {ihdr}, want {width}x{height}x{channels} 8-bit, ending in IEND")
+    check(len(zlib.decompress(idat)) == height * (1 + channels * width),
+          f"{path.name}: pixel data")
 
 
 def grid_side(n: int, nrow: int, size: int = 64, padding: int = 2) -> tuple:
@@ -1556,7 +1584,7 @@ def fake_pool_phase(torch, np, out_dir: Path):
           f"{t_plain:.3f}")
 
 
-LOGGER_LINE = re.compile(r"^(\[\d+/\d+\]\[\d+/\d+\]\t|Epoch \d+: )")
+LOGGER_LINE = re.compile(r"^(\[\d+/\d+\]\[\d+/\d+\]\t|Epoch \d+: |Epoch \[\d+/\d+\] Step )")
 
 
 def logger_text(text: str) -> str:
@@ -1930,6 +1958,327 @@ def loss_space_phases(torch, np, staged):
               + f"; kernels {json.dumps(launches)}; {graphs(tr, name)}")
 
 
+# ---- the MNIST family and FID
+
+
+def trained_tensors(torch, tr) -> list:
+    """Every tensor a step writes: G's and D's parameters and buffers and
+    both Adams' state."""
+    ts = [*tr.gen.parameters(), *tr.gen.buffers(), *tr.disc.parameters(), *tr.disc.buffers()]
+    for opt in (tr.opt_g, tr.opt_d):
+        ts += [t for st in opt.state.values() for t in st.values()
+               if isinstance(t, torch.Tensor)]
+    return ts
+
+
+def mlp_chunk_inputs(torch, tr, seed: int):
+    """Sample indices, noise and (with dropout) keep masks for one chunk,
+    the masks drawn step by step from the Trainer's own generator."""
+    chunk, bs = tr.cfg.train.steps_per_dispatch, tr.cfg.data.batch_size
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    idx = torch.randint(0, tr.dataset.n, (chunk, bs), generator=g, device="cuda")
+    z = torch.randn((chunk, bs, tr.cfg.model.nz), generator=g, device="cuda")
+    drops = [tr.step_dropout(0, j) for j in range(chunk)]
+    return idx, z, [torch.stack(ms) for ms in zip(*drops)]
+
+
+def mlp_eager_steps(torch, tr, idx, z, drop, lr_g, lr_d) -> list:
+    """The chunk's steps one by one through ``train_step``; their metrics."""
+    from strainer_gan_tpu_torch.data import normalize_u8
+    from strainer_gan_tpu_torch.train.steps import train_step
+
+    ds, out = tr.dataset, []
+    for j in range(idx.shape[0]):
+        out.append(train_step(tr.gen, tr.disc, tr.opt_g, tr.opt_d,
+                              normalize_u8(ds.gather(idx[j]), torch.float32),
+                              ds.source_id[idx[j]], z[j], lr_g, lr_d, tr.scfg,
+                              drop_masks=[m[j] for m in drop] or None))
+    return out
+
+
+def mlp_step_ms(torch, tr, idx, z, drop, lr_g, lr_d, chunks: int = 4) -> tuple:
+    """ms/step, synchronised, of ``chunks`` replayed chunks (the inputs'
+    copies included) and of as many steps run eagerly, on one input."""
+    ex = tr._executors[next(iter(tr._executors))]
+    ex(idx, z, lr_g, lr_d, drop=drop)
+    mlp_eager_steps(torch, tr, idx[:2], z[:2], [m[:2] for m in drop], lr_g, lr_d)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(chunks):
+        ex(idx, z, lr_g, lr_d, drop=drop)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(chunks):
+        mlp_eager_steps(torch, tr, idx, z, drop, lr_g, lr_d)
+    torch.cuda.synchronize()
+    n = chunks * idx.shape[0]
+    return (t1 - t0) / n * 1e3, (time.perf_counter() - t1) / n * 1e3
+
+
+def mnist8_phase(torch, np, out_dir: Path):
+    """``mnist8`` through the command line for 2 epochs (the G-first MLP
+    step, the auto batch), the same run at steps_per_dispatch=1 bit-equal,
+    its 28x28 grids, ms/step replayed and eager, and the Sampler serving
+    its checkpoint."""
+    from strainer_gan_tpu_torch import cli, get_preset
+    from strainer_gan_tpu_torch.serve import Sampler
+    from strainer_gan_tpu_torch.train.loop import Trainer
+
+    args = ["--preset", "mnist8", "--epochs", "2", "--out", str(out_dir),
+            "--checkpoint-every", "2", "--save-samples-every", "1"]
+    phase("mnist8", "python -m strainer_gan_tpu_torch.cli " + " ".join(args))
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        tr, results = cli.run(args)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    staging(tr, "mnist8")
+    cfg, shipped = tr.cfg, get_preset("mnist8")
+    bs = min(max(tr.dataset.n // shipped.data.auto_batch_divisor, 16), 64)
+    check(bs == 64 and cfg == shipped.replace(
+        data=dataclasses.replace(shipped.data, batch_size=bs),
+        train=dataclasses.replace(shipped.train, epochs=2)),
+        f"mnist8 ran another config than the preset at --epochs 2 (batch {cfg.data.batch_size})")
+    check(tr.scfg.g_before_d and tr.scfg.flatten and not tr.scfg.dropout,
+          "mnist8 is not the G-first plain MLP step")
+    losses = tr.logger.D_losses + tr.logger.G_losses
+    check(np.all(np.isfinite(losses)), "mnist8: non-finite losses")
+    phase("mnist8", f"{tr.dataset.n} images (28x28x1, digits 8), G 100-256-512-1024-784 / D "
+          f"784-1024-512-256-1, {cfg.model.compute_dtype}, auto batch {bs}, "
+          f"{sum(r['steps'] for r in tr.epoch_results)} steps G first; whole CLI run "
+          f"{total:.2f} s; {graphs(tr, 'mnist8')}")
+    check_png(out_dir / "samples.png", *grid_side(64, 8, 28), channels=1)
+    for e in (1, 2):
+        check_png(out_dir / f"samples_epoch{e}.png", *grid_side(25, 5, 28), channels=1)
+
+    eager = Trainer(cfg.replace(train=dataclasses.replace(cfg.train, steps_per_dispatch=1)),
+                    dataset=tr.dataset)
+    eager.logger.stream = io.StringIO()
+    eager.setup()
+    for e in range(cfg.train.epochs):
+        eager.run_epoch(e)
+    check(eager.graph_stats["replays"] == 0, "the per-step run replayed a graph")
+    phase("mnist8", same_run(torch, np, tr, eager, tee.copy.getvalue(),
+                             eager.logger.stream.getvalue(),
+                             "mnist8 steps_per_dispatch=32 vs 1, epochs 0-1"))
+
+    s = Sampler.from_checkpoint(str(out_dir / "ckpt"), batch_size=64)
+    imgs = s.sample(256, seed=0)
+    check(imgs.shape == (256, 28, 28, 1) and imgs.dtype == np.uint8 and imgs.std() > 1,
+          f"mnist8 sampler output {imgs.shape} {imgs.dtype}")
+    check(s.replays == 3, f"{s.replays} of 4 batches replayed, want 3 after the warm-up")
+    g = torch.Generator().manual_seed(3)
+    zs = [torch.randn((64, 100), generator=g) for _ in range(4)]
+    for z in zs:
+        check(torch.equal(s._run(z), s._sample_batch(z.cuda())),
+              "a replayed mnist8 batch differs from the eager batch on the same noise")
+
+    def per_batch(fn):
+        fn(zs[0])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(20):
+            fn(zs[i % 4])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / 20 * 1e3
+
+    rep, eag = per_batch(s._run), per_batch(lambda z: s._sample_batch(z.cuda()))
+    idx, z, drop = mlp_chunk_inputs(torch, tr, 5)
+    lr = cfg.train.lr_g
+    t_rep, t_eag = mlp_step_ms(torch, tr, idx, z, drop, lr, lr)
+    phase("mnist8", f"ms/step, synchronised, batch {bs} ({CARD}): replayed {t_rep:.4f} "
+          f"(4 chunks of {idx.shape[0]}), eager {t_eag:.4f}; Sampler (epoch 1 checkpoint), "
+          f"256 images as (28, 28, 1) uint8, replayed batches bit-equal to eager ones; "
+          f"ms a batch of 64: replayed {rep:.3f}, eager {eag:.3f}")
+
+
+def mnist_full_phase(torch, np, out_dir: Path):
+    """``mnist_full`` through the command line for 100 epochs: the
+    1-channel z-score prefilter (K2a, K2b at numpy_eps) held to the plain
+    path on the card, the D-first dropout step (a replayed chunk bit-equal
+    to its 32 eager steps, fresh masks every replay), the periodic FID at
+    epoch 100 and the parity report."""
+    from strainer_gan_tpu_torch import cli, get_preset, kernels
+    from strainer_gan_tpu_torch.eval import fid as FID
+    from strainer_gan_tpu_torch.kernels import zscore as KZ
+    from strainer_gan_tpu_torch.strain import score as SC
+    from strainer_gan_tpu_torch.strain import thresholds as TH
+    from strainer_gan_tpu_torch.train import steps as ST
+
+    args = ["--preset", "mnist_full", "--epochs", "100", "--out", str(out_dir),
+            "--parity-check"]
+    phase("mnist_full", "python -m strainer_gan_tpu_torch.cli " + " ".join(args))
+    # the masks of the first replays' first steps, to see that they change
+    seen, call = [], ST.ChunkedStep.__call__
+
+    def watched(self, idx, z, lr_g, lr_d, **kw):
+        out = call(self, idx, z, lr_g, lr_d, **kw)
+        if len(seen) < 4:
+            check(all(torch.equal(b, m) for b, m in zip(self.drop, kw["drop"])),
+                  "a chunk's keep-mask buffers do not hold the masks it was given")
+            seen.append(kw["drop"][0][:, 0].clone())
+        return out
+
+    ST.ChunkedStep.__call__ = watched
+    n_fid = len(FID.calls)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(Tee(sys.stdout)) as tee:
+            tr, results = cli.run(args)
+        torch.cuda.synchronize()
+    finally:
+        ST.ChunkedStep.__call__ = call
+    total = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    staging(tr, "mnist_full")
+    cfg, shipped = tr.cfg, get_preset("mnist_full")
+    check(cfg == shipped.replace(train=dataclasses.replace(shipped.train, epochs=100)),
+          "the mnist_full preset was changed beyond --epochs")
+    check(launches["zscore_column_stats"] >= 1 and launches["zscore_row_max"] >= 1,
+          f"mnist_full's prefilter did not launch K2a and K2b: {launches}")
+    check(results["parity"]["agreement"] == 1.0, f"mnist_full parity {results['parity']}")
+    sd = tr.scfg
+    check(sd.dropout == 0.3 and not sd.g_before_d and sd.real_label == 0.9
+          and sd.fake_label == 0.1, "mnist_full is not the D-first dropout step")
+    check(len(seen) >= 2 and all(not torch.equal(a, b) for a, b in zip(seen, seen[1:])),
+          "consecutive replays saw the same keep masks")
+    losses = tr.logger.D_losses + tr.logger.G_losses
+    check(np.all(np.isfinite(losses)), "mnist_full: non-finite losses")
+    check_png(out_dir / "samples.png", *grid_side(64, 8, 28), channels=1)
+
+    # the prefilter: K2a + K2b against the plain path on the same features
+    feats = tr.engine._features
+    n, d = feats.shape
+    mask = tr.mask_history[0]
+    z_k = KZ.masked_max_abs_z(feats, None, "numpy_eps")
+    z_p = TH._masked_max_abs_z(feats, None, "numpy_eps")
+    m_p = (z_p < cfg.strain.z_threshold).cpu().numpy()
+    check(np.array_equal(mask, m_p), f"mnist_full's prefilter mask differs from the plain "
+          f"path's on the card: {int((mask != m_p).sum())} flips")
+    mean, std = KZ.column_stats(feats, None, "numpy_eps")
+    mean_p, std_p = KZ.column_stats_plain(feats, None, "numpy_eps")
+    err_a = max(float((mean - mean_p).abs().max()), float((std - std_p).abs().max()))
+    check(err_a <= 1e-5 * max(1.0, float(mean_p.abs().max()), float(std_p.abs().max())),
+          f"K2a at numpy_eps off its plain version by {err_a}")
+    check(torch.equal(z_k, KZ.row_max_abs_z_plain(feats, mean, std)),
+          "K2b is not bit-equal to its plain version at mnist_full's shape")
+    t_a = time_ms(torch, lambda: KZ.column_stats(feats, None, "numpy_eps"), iters=20)
+    t_ap = time_ms(torch, lambda: KZ.column_stats_plain(feats, None, "numpy_eps"), iters=20)
+    t_al = time_ms(torch, lambda: torch.std_mean(feats, dim=0, correction=0), iters=20)
+    t_b = time_ms(torch, lambda: KZ.row_max_abs_z(feats, mean, std), iters=20)
+    t_bp = time_ms(torch, lambda: KZ.row_max_abs_z_plain(feats, mean, std), iters=20)
+    ba, _ = bound_ms(4.0 * n * d + 8.0 * d, 4.0 * n * d)
+    bb, _ = bound_ms(4.0 * n * d + 8.0 * d + 4.0 * n, 4.0 * n * d)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    SC.score_features(tr.engine.feature_fn, tr.dataset)
+    torch.cuda.synchronize()
+    feat_s = time.perf_counter() - t1
+    phase("mnist_full", f"{tr.dataset.n} images (8s, 10% 1s, 10% 2s; "
+          f"{int((tr.dataset.source_id != 0).sum())} contaminants), prefilter on 1-channel "
+          f"ResNet18 features at numpy_eps, threshold {cfg.strain.z_threshold}: kept "
+          f"{int(mask.sum())}, mask equal to the plain path's on the card; K2a "
+          f"{n}x{d}: max_abs_err={err_a:.3g} kernel_ms={t_a:.5f} plain_ms={t_ap:.5f} "
+          f"library_ms={t_al:.5f} bound_ms={ba:.5f}; K2b bit-equal kernel_ms={t_b:.5f} "
+          f"plain_ms={t_bp:.5f} bound_ms={bb:.5f}; the feature pass {feat_s * 1e3:.1f} ms "
+          f"({CARD}); kernels {json.dumps(launches)}")
+    phase("mnist_full", f"whole CLI run {total:.2f} s, {sum(r['steps'] for r in tr.epoch_results)}"
+          f" steps over 100 epochs, batch {cfg.data.batch_size}, D dropout {sd.dropout}, labels "
+          f"{sd.real_label}/{sd.fake_label}; parity {results['parity']['agreement']}; "
+          f"{graphs(tr, 'mnist_full')}")
+
+    # one replayed chunk against its 32 eager steps, from the same state
+    lr_g, lr_d = cfg.train.lr_g, cfg.train.lr_d
+    idx, z, drop = mlp_chunk_inputs(torch, tr, 7)
+    ts = trained_tensors(torch, tr)
+    before = [t.detach().clone() for t in ts]
+    ex = tr._executors[next(iter(tr._executors))]
+    m_rep = ex(idx, z, lr_g, lr_d, drop=drop)
+    after_rep = [t.detach().clone() for t in ts]
+    with torch.no_grad():
+        for t, b in zip(ts, before):
+            t.copy_(b)
+    m_eag = mlp_eager_steps(torch, tr, idx, z, drop, lr_g, lr_d)
+    check(all(torch.equal(t, a) for t, a in zip(ts, after_rep)),
+          "a replayed mnist_full chunk differs from its 32 eager steps (state)")
+    check(all(torch.equal(m_rep[k][j], m[k]) for j, m in enumerate(m_eag) for k in m),
+          "a replayed mnist_full chunk differs from its 32 eager steps (metrics)")
+    t_rep, t_eag = mlp_step_ms(torch, tr, idx, z, drop, lr_g, lr_d)
+    phase("mnist_full", f"a replayed chunk of {idx.shape[0]} steps bit-equal to the same steps "
+          f"eager (state and metrics, same noise and keep masks); {len(seen)} consecutive "
+          f"replays each with fresh masks; ms/step, synchronised, batch "
+          f"{cfg.data.batch_size} ({CARD}): replayed {t_rep:.4f}, eager {t_eag:.4f}")
+
+    # the periodic FID of epoch 100
+    check([e for e, _ in tr.fid_history] == [99], f"FID history {tr.fid_history}")
+    calls = FID.calls[n_fid:]
+    check(len(calls) == 2, f"{len(calls)} FID computations, want real and contaminant")
+    check(all(np.isfinite(c["fid"]) for c in calls), f"non-finite periodic FID {calls}")
+    check(tr.fid_history[0][1] == calls[0]["fid"]
+          and f"Epoch 100: FID = {calls[0]['fid']}" in tee.copy.getvalue(),
+          "the periodic FID's console line is missing")
+    phase("mnist_full", "periodic FID (epoch 100, L2-normalised activations, synthetic "
+          "InceptionV3 weights): " + "; ".join(
+              f"{name} {c['fid']:.6g} on {c['n']} images, activations {c['activations_s']:.3f} s,"
+              f" sqrtm {c['distance_s']:.3f} s ({c['branch']})"
+              for name, c in zip(("real", "contaminant"), calls)) + f" ({CARD})")
+
+
+def fid_phase(torch, np):
+    """The port's FID chain on the card on ``tests/fixtures/backbones.npz``
+    (written by a torch oracle with scipy): activations, the whole chain,
+    and the Newton-Schulz square root against eigh at 2048 dimensions."""
+    from strainer_gan_tpu_torch.eval import fid as FID
+    from strainer_gan_tpu_torch.models.inception import InceptionV3Features
+    from strainer_gan_tpu_torch.models.synth_weights import load_synth_weights
+    from strainer_gan_tpu_torch.ops import sqrtm as SQ
+
+    fx = np.load(HERE / "tests" / "fixtures" / "backbones.npz")
+    model = load_synth_weights(InceptionV3Features()).eval().cuda()
+
+    def nchw(u8):
+        x = ((u8.astype(np.float32) / 255.0) - 0.5) / 0.5
+        return torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().cuda()
+
+    a, b = nchw(fx["fid_a_u8"]), nchw(fx["fid_b_u8"])
+    acts = FID.get_activations(a, model, batch_size=16)
+    err = float(np.abs(acts.cpu().numpy() - fx["inception_acts_a"]).max())
+    check(err <= 2e-3, f"InceptionV3 activations off the fixture by {err}")
+    fid = FID.calculate_fid(a, b, model, batch_size=16)
+    rel = abs(fid - float(fx["fid_value"])) / abs(float(fx["fid_value"]))
+    check(rel <= 2e-2, f"FID {fid} off the fixture's {float(fx['fid_value'])} by {rel:.3g}")
+    c = FID.calls[-1]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    pair = []
+    for _ in range(2):
+        x = torch.randn((4096, 2048), generator=g, device="cuda")
+        pair.append(x.T @ x / 4096 + 0.1 * torch.eye(2048, device="cuda"))
+    times = {}
+    for name, fn in (("ns", SQ.trace_sqrtm_product_ns), ("eigh", SQ.trace_sqrtm_product)):
+        fn(*pair)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        times[name] = (float(fn(*pair)), time.perf_counter() - t)
+    ns, eig = times["ns"][0], times["eigh"][0]
+    check(abs(ns - eig) <= 1e-3 * abs(eig), f"NS trace {ns} vs eigh {eig}")
+    imgs = torch.rand((500, 3, 28, 28), generator=g, device="cuda") * 2 - 1
+    FID.get_activations(imgs[:50], model)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    FID.get_activations(imgs, model)
+    torch.cuda.synchronize()
+    per_img = (time.perf_counter() - t) / 500 * 1e3
+    phase("fid", f"backbones.npz on the card (float32, TF32 off): InceptionV3 activations "
+          f"within {err:.3g} of the fixture (tol 2e-3); FID {fid:.6g} vs {float(fx['fid_value']):.6g}"
+          f" (rel {rel:.3g}, tol 2e-2; {c['branch']} branch, 16 samples); 2048-dim "
+          f"well-conditioned pair: NS trace {ns:.7g} vs eigh {eig:.7g} "
+          f"(rel {abs(ns - eig) / abs(eig):.3g}, tol 1e-3), NS {times['ns'][1] * 1e3:.1f} ms, "
+          f"eigh {times['eigh'][1] * 1e3:.1f} ms; InceptionV3 at batch 50 (299x299): "
+          f"{per_img:.3f} ms an image ({CARD})")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -1988,6 +2337,11 @@ def main() -> int:
     in_batch_recycle_phase(torch, np)
     with tempfile.TemporaryDirectory() as tmp:
         fake_pool_phase(torch, np, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        mnist8_phase(torch, np, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        mnist_full_phase(torch, np, Path(tmp))
+    fid_phase(torch, np)
     phase("staging", "host seconds a mixture, native: " + ", ".join(
         f"{name} {s:.2f} ({n})" for name, n, s in STAGING)
         + f"; {sum(s for _, _, s in STAGING):.2f} s in all")

@@ -8,6 +8,16 @@ torch's (out, in, kh, kw), a transposed conv to (in, out, kh, kw)
 ``weight``/``bias`` and ``batch_stats`` ``mean``/``var`` to
 ``running_mean``/``running_var``.  The autoencoder's convolutions carry
 biases: flax ``bias`` maps to ``bias`` (`tests/test_models_parity.py:197`).
+The MLP's ``DenseTorch_k`` kernels are (in, out), torch's Linear weights
+(out, in).  ``load_dcgan_from_flax``, ``dcgan_to_flax`` and the Adam
+functions serve every model of the port: the DCGAN, the autoencoder and
+the MLP.
+
+The backbones: ``resnet18_state_dict_from_flax`` (3 or 1 input channels)
+and ``inception_state_dict_from_flax`` turn a flax trunk's variables into
+torchvision-named state_dicts, along the JAX package's name pairs
+(`strainer_gan_tpu/models/resnet.py:144-173`,
+`strainer_gan_tpu/models/inception.py:194-271`).
 """
 from __future__ import annotations
 
@@ -18,6 +28,7 @@ import torch
 
 from .models.autoencoder import ConvAutoEncoder
 from .models.dcgan import Generator64
+from .models.mlp_gan import MLPDiscriminator, MLPGenerator
 
 # (torch name, flax collection, flax path, layout)
 Entry = Tuple[str, str, Tuple[str, ...], str]
@@ -31,20 +42,31 @@ def _ae_entries(module: ConvAutoEncoder) -> Iterator[Entry]:
             yield f"{names}.{i}.bias", "params", (f"{flax}_{i}", "bias"), "vec"
 
 
-def _entries(module: torch.nn.Module) -> Iterator[Entry]:
-    if isinstance(module, ConvAutoEncoder):
-        yield from _ae_entries(module)
-        return
-    conv = "ConvTranspose2dTorch" if isinstance(module, Generator64) else "Conv2dTorch"
-    layout = "convT" if isinstance(module, Generator64) else "conv"
-    for i in range(len(module.convs)):
-        yield f"convs.{i}.weight", "params", (f"{conv}_{i}", "kernel"), layout
-    for i in range(len(module.bns)):
+def _bn_entries(module: torch.nn.Module) -> Iterator[Entry]:
+    for i in range(len(module.bns or ())):
         bn = f"MaskedBatchNorm_{i}"
         yield f"bns.{i}.weight", "params", (bn, "scale"), "vec"
         yield f"bns.{i}.bias", "params", (bn, "bias"), "vec"
         yield f"bns.{i}.running_mean", "batch_stats", (bn, "mean"), "vec"
         yield f"bns.{i}.running_var", "batch_stats", (bn, "var"), "vec"
+
+
+def _entries(module: torch.nn.Module) -> Iterator[Entry]:
+    if isinstance(module, ConvAutoEncoder):
+        yield from _ae_entries(module)
+        return
+    if isinstance(module, (MLPGenerator, MLPDiscriminator)):
+        for i in range(len(module.linears)):
+            yield f"linears.{i}.weight", "params", (f"DenseTorch_{i}", "kernel"), "dense"
+            yield f"linears.{i}.bias", "params", (f"DenseTorch_{i}", "bias"), "vec"
+        if isinstance(module, MLPGenerator):
+            yield from _bn_entries(module)
+        return
+    conv = "ConvTranspose2dTorch" if isinstance(module, Generator64) else "Conv2dTorch"
+    layout = "convT" if isinstance(module, Generator64) else "conv"
+    for i in range(len(module.convs)):
+        yield f"convs.{i}.weight", "params", (f"{conv}_{i}", "kernel"), layout
+    yield from _bn_entries(module)
 
 
 def _to_torch(a: np.ndarray, layout: str) -> np.ndarray:
@@ -53,6 +75,8 @@ def _to_torch(a: np.ndarray, layout: str) -> np.ndarray:
         return np.transpose(a, (3, 2, 0, 1))
     if layout == "convT":
         return np.transpose(a, (2, 3, 0, 1))
+    if layout == "dense":
+        return np.ascontiguousarray(a.T)
     return a
 
 
@@ -61,6 +85,8 @@ def _to_flax(a: np.ndarray, layout: str) -> np.ndarray:
         return np.transpose(a, (2, 3, 1, 0))
     if layout == "convT":
         return np.transpose(a, (2, 3, 0, 1))
+    if layout == "dense":
+        return a.T
     return a
 
 
@@ -77,9 +103,9 @@ def _put(tree: Dict, path, value) -> None:
 
 
 def load_dcgan_from_flax(module: torch.nn.Module, params, batch_stats=None) -> torch.nn.Module:
-    """Copy a flax Generator64/Discriminator64's (or ConvAutoEncoder's)
-    variables into ``module``; without ``batch_stats`` the BatchNorm
-    running statistics stay as they are."""
+    """Copy a flax Generator64/Discriminator64's (or ConvAutoEncoder's, or
+    MLPGenerator/MLPDiscriminator's) variables into ``module``; without
+    ``batch_stats`` the BatchNorm running statistics stay as they are."""
     trees = {"params": params, "batch_stats": batch_stats}
     sd = module.state_dict()
     with torch.no_grad():
@@ -164,4 +190,40 @@ def resnet18_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
         sd[bn + ".bias"] = p["MaskedBatchNorm_0"]["bias"]
         sd[bn + ".running_mean"] = s["MaskedBatchNorm_0"]["mean"]
         sd[bn + ".running_var"] = s["MaskedBatchNorm_0"]["var"]
+    return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in sd.items()}
+
+
+# the flax scopes of InceptionV3Features' BasicConv2d units, block by block
+# (`strainer_gan_tpu/models/inception.py:251-260`)
+_INCEPTION_BLOCKS = (("InceptionA_0", 7), ("InceptionA_1", 7), ("InceptionA_2", 7),
+                     ("InceptionB_0", 4), ("InceptionC_0", 10), ("InceptionC_1", 10),
+                     ("InceptionC_2", 10), ("InceptionC_3", 10), ("InceptionD_0", 6),
+                     ("InceptionE_0", 9), ("InceptionE_1", 9))
+
+
+def inception_name_pairs() -> Iterator[Tuple[Tuple[str, ...], str]]:
+    """(flax BasicConv2d path, torchvision module prefix), in the order both
+    architectures declare their units."""
+    from .models.inception import BasicConv2d, InceptionV3Features
+
+    ours = [(f"BasicConv2d_{i}",) for i in range(5)]
+    for scope, n in _INCEPTION_BLOCKS:
+        ours += [(scope, f"BasicConv2d_{i}") for i in range(n)]
+    tv = [name for name, m in InceptionV3Features().named_modules()
+          if isinstance(m, BasicConv2d)]
+    assert len(ours) == len(tv), (len(ours), len(tv))
+    return zip(ours, tv)
+
+
+def inception_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """torchvision-named state_dict of a flax InceptionV3Features' variables."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = {}
+    for path, tv in inception_name_pairs():
+        p, s = _get(params, path), _get(stats, path)
+        sd[tv + ".conv.weight"] = _to_torch(p["Conv2dTorch_0"]["kernel"], "conv")
+        sd[tv + ".bn.weight"] = p["MaskedBatchNorm_0"]["scale"]
+        sd[tv + ".bn.bias"] = p["MaskedBatchNorm_0"]["bias"]
+        sd[tv + ".bn.running_mean"] = s["MaskedBatchNorm_0"]["mean"]
+        sd[tv + ".bn.running_var"] = s["MaskedBatchNorm_0"]["var"]
     return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in sd.items()}

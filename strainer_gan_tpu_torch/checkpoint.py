@@ -7,7 +7,8 @@ orbax: under the checkpoint directory, ``epoch_N/state.pt`` holds G and D
 autoencoder strainer's weights once trained (``ae``), a pool config's fake
 pool (``fake_pool``; restored into the Trainer's pool tensor in place, so
 its captured graphs stay valid) and the Trainer's ``torch.Generator``
-states (the JAX package stores its PRNG key); ``config.json`` the config; ``meta_epoch_N.json`` that epoch's
+states, the dropout masks' among them (the JAX package stores its PRNG
+key); ``config.json`` the config; ``meta_epoch_N.json`` that epoch's
 metadata (``d_bn_eval``, ``iters``, ``band_cooloff``, ...), with the same
 keys as the JAX package's; ``meta.json`` the latest epoch's.  Enough to
 resume with the same masks and losses as an uninterrupted run.
@@ -29,7 +30,8 @@ def save_checkpoint(path: str, trainer, epoch: int) -> str:
         gen=trainer.gen.state_dict(), disc=trainer.disc.state_dict(),
         opt_g=trainer.opt_g.state_dict(), opt_d=trainer.opt_d.state_dict(),
         active=eng.active, base_active=eng.base_active,
-        rng=trainer.rng.get_state(), pool_rng=trainer.pool_rng.get_state(), epoch=epoch,
+        rng=trainer.rng.get_state(), pool_rng=trainer.pool_rng.get_state(),
+        drop_rng=trainer.drop_rng.get_state(), epoch=epoch,
     )
     if trainer.fake_pool is not None:
         payload["fake_pool"] = trainer.fake_pool  # the JAX package's ``pool``
@@ -93,8 +95,9 @@ def restore_checkpoint(path: str, trainer, epoch: Optional[int] = None) -> int:
     trainer.opt_g.load_state_dict(payload["opt_g"])
     trainer.opt_d.load_state_dict(payload["opt_d"])
     trainer.rng.set_state(payload["rng"].cpu())
-    if "pool_rng" in payload:
-        trainer.pool_rng.set_state(payload["pool_rng"].cpu())
+    for name in ("pool_rng", "drop_rng"):
+        if name in payload:
+            getattr(trainer, name).set_state(payload[name].cpu())
     if "fake_pool" in payload:
         trainer.fake_pool_rows = payload["fake_pool_rows"]
         saved = payload["fake_pool"]

@@ -76,6 +76,15 @@ def load_config(args):
     return cfg
 
 
+def image_rows(imgs, cfg):
+    """The MLP's (N, H*W*C) sample rows as (N, H, W, C) images; images as
+    they are."""
+    if imgs.ndim == 2:
+        s = cfg.data.image_size
+        imgs = imgs.reshape(-1, s, s, cfg.model.nc)
+    return imgs
+
+
 def run(argv=None, stdout=None) -> Tuple[Optional[object], dict]:
     """Parse ``argv`` and run; returns ``(trainer, results)`` (``trainer`` is
     None after ``--list``).  Raises ``UsageError`` for a refused request."""
@@ -127,7 +136,7 @@ def run(argv=None, stdout=None) -> Tuple[Optional[object], dict]:
             save_checkpoint(os.path.join(args.out, "ckpt"), trainer, epoch)
         if args.out and args.save_samples_every and (epoch + 1) % args.save_samples_every == 0:
             # per-epoch sample PNGs (`#8.py:144-147`)
-            save_image_grid(trainer.sample(25),
+            save_image_grid(image_rows(trainer.sample(25), cfg),
                             os.path.join(args.out, f"samples_epoch{epoch + 1}.png"), nrow=5)
 
     results = dict(name=cfg.name, wall_s=round(time.time() - t0, 2), epochs=epochs,
@@ -152,7 +161,8 @@ def run(argv=None, stdout=None) -> Tuple[Optional[object], dict]:
                 np.asarray(eng.last_scores.cpu()),
                 None if eng.last_threshold is None else float(eng.last_threshold),
                 os.path.join(args.out, "strain_scores.png"))
-        save_image_grid(trainer.sample(64), os.path.join(args.out, "samples.png"))
+        save_image_grid(image_rows(trainer.sample(64), cfg),
+                        os.path.join(args.out, "samples.png"))
         with open(os.path.join(args.out, "metrics.json"), "w") as f:
             json.dump(results, f, indent=2)
     print(json.dumps(results), file=out)

@@ -11,8 +11,10 @@ far: the baselines ``basic`` and ``celeba`` (`strainer_gan_tpu/config.py:366-373
 (`config.py:431-454`), ``batch_mask``, the in-step quantile mask
 (`config.py:465-474`), and the fake-concatenation family
 ``in_batch_recycle``, ``strainer_gan``, ``fake_concat``,
-``strainer_concat_fast`` and ``loss_concat_fast`` (`config.py:476-521`).
-The other presets come with the slices that run them.
+``strainer_concat_fast`` and ``loss_concat_fast`` (`config.py:476-521`),
+and the MNIST family ``mnist8``, ``mnist_8_2``, ``mnist_1_2_8_baseline``
+and ``mnist_full`` (`config.py:375-399, 533-548`) with the FID baseline
+``celeba_dog_baseline`` (`config.py:401-408`): all 21 presets.
 """
 from __future__ import annotations
 
@@ -220,6 +222,21 @@ _CELEBA_ANIME = DataConfig(
     drop_last=False,
 )
 _POOL_EVAL = EvalConfig(fid=True, feature_distance=True, wasserstein=True)
+_MNIST_MLP_MODEL = ModelConfig(arch="mlp", nc=1, img_size=784)
+_MNIST_128_MODEL = ModelConfig(arch="mlp", nc=1, img_size=784, g_batchnorm=True,
+                               d_dropout=0.3)
+_MNIST_8 = SourceSpec("mnist", class_filter=(8,))
+_MNIST_1_2_8 = (_MNIST_8, SourceSpec("mnist", class_filter=(1,), class_fraction=0.1),
+                SourceSpec("mnist", class_filter=(2,), class_fraction=0.1))
+_MNIST_TRAIN = TrainConfig(epochs=300, adam_defaults=True, d_loss_reduction="half_mean",
+                           g_before_d=True)
+
+
+def _mnist_data(batch: int, sources: Tuple[SourceSpec, ...], mixer: str = "concat",
+                auto_batch_divisor: Optional[int] = None) -> DataConfig:
+    return DataConfig(sources=sources, image_size=28, channels=1, batch_size=batch,
+                      mixer=mixer, flatten=True, auto_batch_divisor=auto_batch_divisor)
+
 
 _BASIC = ExperimentConfig(
     name="basic",  # `#%basic.py` — vanilla DCGAN, 5 epochs, no strain
@@ -230,6 +247,35 @@ _BASIC = ExperimentConfig(
 PRESETS: Dict[str, ExperimentConfig] = {
     "basic": _BASIC,
     "celeba": _BASIC.replace(name="celeba"),  # `#celeba.py` (prints only)
+    # -- the MNIST family (`config.py:375-399`): MLP GANs, G updated first
+    "mnist8": ExperimentConfig(
+        name="mnist8",  # `#8.py` — digit-8-only MLP GAN, G updated before D
+        data=_mnist_data(64, (_MNIST_8,), auto_batch_divisor=10),
+        model=_MNIST_MLP_MODEL,
+        train=dataclasses.replace(_MNIST_TRAIN, lr_g=2e-4, lr_d=2e-4),
+    ),
+    "mnist_8_2": ExperimentConfig(
+        name="mnist_8_2",  # `Untitled-2.py` — 90% 8s + 10% 2s, no strain
+        data=_mnist_data(64, (_MNIST_8, SourceSpec("mnist", class_filter=(2,),
+                                                   class_fraction=0.1)),
+                         auto_batch_divisor=100),
+        model=_MNIST_MLP_MODEL,
+        train=_MNIST_TRAIN,
+    ),
+    "mnist_1_2_8_baseline": ExperimentConfig(
+        name="mnist_1_2_8_baseline",  # `Untitled-3.py` — 80% 8s + 10% 1s + 10% 2s
+        data=_mnist_data(64, _MNIST_1_2_8),
+        model=_MNIST_MLP_MODEL,
+        train=_MNIST_TRAIN,
+    ),
+    "celeba_dog_baseline": ExperimentConfig(
+        name="celeba_dog_baseline",  # `Untitled-5.py` — CelebA+CIFAR-dog, FID, no strain
+        data=DataConfig(sources=(SourceSpec("celeba"),
+                                 SourceSpec("cifar10", class_filter=(5,))),
+                        mixer="shuffled_combined", drop_last=False),
+        train=TrainConfig(epochs=5),
+        eval=EvalConfig(fid=True),
+    ),
     "zscore": ExperimentConfig(
         name="zscore",  # `#z_score.py` — fixed z>5, applied once at epoch 3
         data=_CELEBA_CIFAR20K,
@@ -345,6 +391,20 @@ PRESETS: Dict[str, ExperimentConfig] = {
             clean_ratio_schedule=((0, 1.0), (3, 0.8), (5, 0.6), (7, 0.5)),
             final_py_ratio_inversion=True, bn_eval_after_score=True,
         ),
+    ),
+    "mnist_full": ExperimentConfig(
+        name="mnist_full",  # `# 1,2,8.py` — MNIST full pipeline + periodic FID
+        data=_mnist_data(64, _MNIST_1_2_8),
+        model=_MNIST_128_MODEL,
+        train=TrainConfig(epochs=300, adam_defaults=True, real_label=0.9, fake_label=0.1,
+                          d_loss_reduction="half_mean"),
+        strain=StrainConfig(method="zscore_fixed", feature_extractor="resnet18_1ch",
+                            z_threshold=4.0, z_std_mode="numpy_eps", prefilter=True,
+                            # quirk #3 (SURVEY §2.4): the per-epoch loss refinement
+                            # of `# 1,2,8.py:263-267` is a no-op; prefilter only
+                            start_epoch=3, every_epoch=False),
+        eval=EvalConfig(fid=True, fid_every_epochs=100, fid_n_samples=1000,
+                        fid_normalize_activations=True),
     ),
 }
 

@@ -8,13 +8,16 @@ The generators are numpy copies of the reference's, and the resize, the
 crop and the mixture's gather run through the port's own copy of the
 reference's C++ staging library (``native/``), so the same seed gives
 byte-identical arrays in both packages (tests/test_torch_slice.py,
-tests/test_torch_native.py).  The numpy versions of the resize and the
+tests/test_torch_native.py, tests/test_torch_mnist_data.py).  MNIST's idx
+files (raw or ``.gz``) are read from the same roots.  The numpy versions of the resize and the
 crop stay here as ``*_plain``, the plain versions the library is held to.
 """
 from __future__ import annotations
 
+import gzip
 import os
 import pickle
+import struct
 import random as _pyrandom
 import zlib
 from concurrent.futures import ThreadPoolExecutor
@@ -182,6 +185,27 @@ def _find(relpaths) -> Optional[str]:
     return None
 
 
+def _load_mnist_disk() -> Optional[ArrayDataset]:
+    """MNIST's training idx files (`strainer_gan_tpu/data/datasets.py:129-152`):
+    images (N, 28, 28, 1) uint8 and their int32 labels, raw or gzipped."""
+    img_p = _find(["MNIST/raw/train-images-idx3-ubyte",
+                   "MNIST/raw/train-images-idx3-ubyte.gz",
+                   "mnist/train-images-idx3-ubyte"])
+    if img_p is None:
+        return None
+    lbl_p = img_p.replace("images-idx3", "labels-idx1")
+
+    def read(path):
+        with (gzip.open if path.endswith(".gz") else open)(path, "rb") as f:
+            return f.read()
+
+    raw = read(img_p)
+    _, n, h, w = struct.unpack(">IIII", raw[:16])
+    images = np.frombuffer(raw, np.uint8, offset=16).reshape(n, h, w, 1)
+    labels = np.frombuffer(read(lbl_p), np.uint8, offset=8).astype(np.int32)
+    return ArrayDataset(images.copy(), labels)
+
+
 def _load_cifar10_disk() -> Optional[ArrayDataset]:
     p = _find(["cifar-10/cifar-10-batches-py", "cifar-10-batches-py"])
     if p is None:
@@ -254,9 +278,57 @@ def _smooth_field(coarse, lo, hi, size):
     return img / np.abs(img).max(axis=(1, 2, 3), keepdims=True).clip(1e-6)
 
 
+def _digit_draws(rng, m, size):
+    """The next ``m`` digits' draws in the reference's order
+    (`strainer_gan_tpu/data/datasets.py:246-256`): each image's centre
+    ``cx, cy`` (float64), then its (size, size) float64 noise."""
+    centres = np.empty((m, 2))
+    noise = np.empty((m, size, size))
+    for i in range(m):
+        centres[i] = rng.uniform(-0.1, 0.1, 2)
+        noise[i] = rng.normal(0, 0.05, (size, size))
+    return centres, noise
+
+
+def _digits(labels, centres, noise, size):
+    """The reference's strokes for a batch of images, as uint8: its
+    per-image arithmetic on the batch.  The float32 grid less each image's
+    float64 centre promotes to float64 as the reference's scalar does
+    (NumPy 2 typing), and every operation is element-wise, so batching
+    changes no value."""
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size - 0.5
+    d = labels.reshape(-1, 1, 1)
+    cx = centres[:, 0].reshape(-1, 1, 1).astype((xx - np.float64(0.0)).dtype)
+    cy = centres[:, 1].reshape(-1, 1, 1).astype((yy - np.float64(0.0)).dtype)
+    r = 0.25 + 0.02 * d
+    ring = np.exp(-(((xx - cx) ** 2 + (yy - cy) ** 2) ** 0.5 - r) ** 2 / 0.004)
+    ring = np.where(d % 2 == 1, ring * (xx > cx - 0.05).astype(np.float32), ring)
+    img = np.clip(ring + noise, 0, 1).astype(np.float32)
+    return (img * 255).astype(np.uint8)
+
+
+def _synthetic_digits(rng, n: int, size: int, ch: int) -> ArrayDataset:
+    """The ``digits`` kind (strokes in channel 0, any others 0): the main
+    thread makes the draws ``SYNTH_CHUNK`` images at a time, in the
+    reference's order, while host threads finish the chunks already
+    drawn."""
+    labels = rng.integers(0, 10, n).astype(np.int32)
+    out = np.zeros((n, size, size, ch), np.uint8)
+
+    def finish(lo, hi, centres, noise):
+        out[lo:hi, :, :, 0] = _digits(labels[lo:hi], centres, noise, size)
+
+    with ThreadPoolExecutor(native.threads()) as pool:
+        done = [pool.submit(finish, lo, min(lo + SYNTH_CHUNK, n),
+                            *_digit_draws(rng, min(lo + SYNTH_CHUNK, n) - lo, size))
+                for lo in range(0, n, SYNTH_CHUNK)]
+        for f in done:
+            f.result()
+    return ArrayDataset(out, labels)
+
+
 def _synthetic(kind: str, n: int, size: int, ch: int, seed: int) -> ArrayDataset:
-    """`strainer_gan_tpu/data/datasets.py:226-260`, kinds of the ported
-    presets, byte for byte.  The random draws are made first, in the
+    """`strainer_gan_tpu/data/datasets.py:226-260`, byte for byte.  The random draws are made first, in the
     reference's order; the images are then finished ``SYNTH_CHUNK`` at a
     time on host threads (numpy's element-wise loops release the GIL), each
     with the reference's operations, so chunking changes no byte."""
@@ -284,6 +356,8 @@ def _synthetic(kind: str, n: int, size: int, ch: int, seed: int) -> ArrayDataset
             x = _smooth_field(coarse, lo, hi, size)
             return np.clip(np.round(x * 2.0) / 2.0 * 0.5 + 0.5, 0, 1)
         labels = np.zeros(n, np.int32)
+    elif kind == "digits":  # sparse strokes on black (MNIST-like)
+        return _synthetic_digits(rng, n, size, ch)
     else:
         raise ValueError(f"unknown synthetic kind {kind!r}")
     out = np.empty((n, size, size, ch), np.uint8)
@@ -297,7 +371,7 @@ def _synthetic(kind: str, n: int, size: int, ch: int, seed: int) -> ArrayDataset
     return ArrayDataset(out, labels)
 
 
-_SYNTH_SIZES = {"faces": 20000, "objects": 50000, "anime": 6000}
+_SYNTH_SIZES = {"faces": 20000, "objects": 50000, "anime": 6000, "digits": 60000}
 
 
 def load_source(spec: SourceSpec, image_size: int, channels: int, seed: int,
@@ -306,7 +380,10 @@ def load_source(spec: SourceSpec, image_size: int, channels: int, seed: int,
     array at the target resolution."""
     name = spec.name
     ds: Optional[ArrayDataset] = None
-    if name == "cifar10":
+    if name == "mnist":
+        ds = _load_mnist_disk()
+        kind = "digits"
+    elif name == "cifar10":
         ds = _load_cifar10_disk()
         kind = "objects"
     elif name == "celeba":
@@ -322,7 +399,7 @@ def load_source(spec: SourceSpec, image_size: int, channels: int, seed: int,
 
     if ds is None:
         n = max_synth or _SYNTH_SIZES.get(kind, 20000)
-        base = 32 if kind == "objects" else image_size
+        base = 32 if kind == "objects" else (28 if kind == "digits" else image_size)
         # stable per-source seed offset (`datasets.py:301-307`)
         ds = _synthetic(kind, n, base, channels,
                         seed=seed + zlib.crc32(name.encode()) % 10000)

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import MaskedBatchNorm2d
+from .layers import MaskedBatchNorm
 
 
 class Generator64(nn.Module):
@@ -31,7 +31,7 @@ class Generator64(nn.Module):
         self.convs = nn.ModuleList(
             nn.ConvTranspose2d(cin, cout, 4, s, p, bias=False) for cin, cout, s, p in specs
         )
-        self.bns = nn.ModuleList(MaskedBatchNorm2d(cout) for _, cout, _, _ in specs[:-1])
+        self.bns = nn.ModuleList(MaskedBatchNorm(cout) for _, cout, _, _ in specs[:-1])
 
     def forward(self, z: torch.Tensor, sample_weights: Optional[torch.Tensor] = None,
                 train: Optional[bool] = None) -> torch.Tensor:
@@ -53,7 +53,7 @@ class Discriminator64(nn.Module):
         self.convs = nn.ModuleList(
             nn.Conv2d(cin, cout, 4, s, p, bias=False) for cin, cout, s, p in specs
         )
-        self.bns = nn.ModuleList(MaskedBatchNorm2d(c) for c in (d * 2, d * 4, d * 8))
+        self.bns = nn.ModuleList(MaskedBatchNorm(c) for c in (d * 2, d * 4, d * 8))
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:
         """conv0 -> LeakyReLU -> conv1 (raw, pre-BN): mask-independent."""

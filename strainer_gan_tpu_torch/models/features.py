@@ -2,23 +2,31 @@
 `strainer_gan_tpu/models/features.py`).
 
 ``build_feature_fn`` returns ``f(normalised NCHW batch) -> (N, 512)`` for
-the eval-mode ResNet18 trunk.  Its weights come from a staged torchvision
-``resnet18.pt`` where there is one, found as the JAX package finds it
-(`strainer_gan_tpu/models/resnet.py:239-253`): in ``$STRAINER_WEIGHTS_DIR``,
-then in ``./weights``.  Otherwise the trunk takes the synthetic weights of
-``synth_weights.py`` and warns (once per calling line, Python's default).  (With nothing staged the
-JAX package's default is instead a flax initialisation from
-``PRNGKey(0)``, which torch cannot reproduce.)
+the eval-mode ResNet18 trunk, or for ``resnet18_1ch`` its 1-channel
+variant (`# 1,2,8.py:141-151`, ``mnist_full``'s prefilter), which also
+takes flattened (N, H*W) MLP rows when given ``flatten_input_hw``
+(`strainer_gan_tpu/models/features.py:72-101`).  The 3-channel trunk's
+weights come from a staged torchvision ``resnet18.pt`` where there is one,
+found as the JAX package finds it (`strainer_gan_tpu/models/resnet.py:239-253`):
+in ``$STRAINER_WEIGHTS_DIR``, then in ``./weights``.  The 1-channel trunk
+never loads staged weights, as in the JAX package (`features.py:57-60`).
+Otherwise the trunk takes the synthetic weights of ``synth_weights.py`` and
+warns (once per calling line, Python's default).  (With nothing staged
+the JAX package's default is instead a flax initialisation from
+``PRNGKey(0)``, which torch cannot reproduce; a test bridges those
+weights with ``bridge.resnet18_state_dict_from_flax``.)  The trunk runs in
+float32 with TF32 off (``device.f32_math``): its features decide the
+strain.
 """
 from __future__ import annotations
 
 import os
 import warnings
-from typing import Callable, Mapping, Optional
+from typing import Callable, Mapping, Optional, Tuple
 
 import torch
 
-from ..device import resolve_device
+from ..device import f32_math, resolve_device
 from .resnet import ResNet18Features, load_staged_weights
 from .synth_weights import load_synth_weights
 
@@ -38,23 +46,34 @@ def try_load_pretrained(name: str) -> Optional[Mapping]:
     return None
 
 
-def build_feature_fn(name: str = "resnet18", channels: int = 3,
-                     device=None) -> Callable[[torch.Tensor], torch.Tensor]:
-    if name != "resnet18" or channels != 3:
-        raise ValueError(f"feature extractor {name!r} ({channels} ch) is not ported yet")
-    model = ResNet18Features(channels)
-    staged = try_load_pretrained(name)
+def build_feature_fn(name: str = "resnet18", channels: int = 3, device=None,
+                     flatten_input_hw: Optional[Tuple[int, int]] = None,
+                     state_dict: Optional[Mapping] = None
+                     ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``state_dict``: torchvision-named weights to use instead of the
+    staged or synthetic ones (a test's bridged weights)."""
+    if name not in ("resnet18", "resnet18_1ch"):
+        raise ValueError(f"feature extractor {name!r} is not ported yet")
+    in_ch = 1 if name.endswith("_1ch") else channels
+    model = ResNet18Features(in_ch)
+    staged = state_dict
+    if staged is None and in_ch == 3:
+        staged = try_load_pretrained("resnet18")
     if staged is not None:
         load_staged_weights(model, staged)
     else:
         load_synth_weights(model)
-        warnings.warn(f"no staged {name}.pt in $STRAINER_WEIGHTS_DIR or ./weights: the "
-                      "feature trunk uses the synthetic weights of "
-                      "models/synth_weights.py", stacklevel=2)
+        warnings.warn(f"no staged resnet18.pt in $STRAINER_WEIGHTS_DIR or ./weights (or "
+                      f"a {in_ch}-channel trunk, which never loads one): the feature trunk "
+                      "uses the synthetic weights of models/synth_weights.py", stacklevel=2)
     model = model.eval().to(resolve_device(device))
 
     @torch.no_grad()
     def f(x: torch.Tensor) -> torch.Tensor:
-        return model(x)
+        if flatten_input_hw is not None and x.dim() == 2:
+            h, w = flatten_input_hw  # NHWC rows, as the JAX package flattens them
+            x = x.reshape(x.shape[0], h, w, in_ch).permute(0, 3, 1, 2)
+        with f32_math():
+            return model(x)
 
     return f

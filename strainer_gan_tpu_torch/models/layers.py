@@ -1,12 +1,18 @@
 """Shared layers (counterpart of `strainer_gan_tpu/models/layers.py`).
 
 Convolutions are ``nn.Conv2d`` / ``nn.ConvTranspose2d`` as the reference
-scripts use them (`#%basic.py:106-182`).  ``MaskedBatchNorm2d`` is
-``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1, biased batch variance to
-normalise, unbiased variance for the running update) extended with
-per-sample weights, which ``nn.BatchNorm2d`` does not take: zero-weight
-lanes (the padding of a partial tail batch) influence neither the batch
-statistics nor the running ones (`layers.py:318-391`).
+scripts use them (`#%basic.py:106-182`).  ``MaskedBatchNorm`` is
+``nn.BatchNorm2d`` on (N, C, H, W) and ``nn.BatchNorm1d`` on (N, C) (eps
+1e-5, momentum 0.1, biased batch variance to normalise, unbiased variance
+for the running update; statistics over every axis but the channel's)
+extended with per-sample weights, which torch's BatchNorms do not take:
+zero-weight lanes (the padding of a partial tail batch) influence neither
+the batch statistics nor the running ones (`layers.py:147-220`).
+
+The MLP's layers: ``Linear`` is ``nn.Linear`` with the JAX package's
+``DenseTorch`` initialisation drawn from the caller's generator
+(`layers.py:223-251`), and ``leaky_relu`` selects with ``x >= 0`` as
+`layers.py:254-255` does.
 """
 from __future__ import annotations
 
@@ -16,7 +22,7 @@ import torch
 from torch import nn
 
 
-class MaskedBatchNorm2d(nn.Module):
+class MaskedBatchNorm(nn.Module):
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
         self.momentum = momentum
@@ -30,6 +36,8 @@ class MaskedBatchNorm2d(nn.Module):
                 train: Optional[bool] = None) -> torch.Tensor:
         if train is None:
             train = self.training
+        dims = (0,) + tuple(range(2, x.dim()))  # all but the channel axis
+        per_channel = (1, -1) + (1,) * (x.dim() - 2)
         if not train:
             mean, var = self.running_mean, self.running_var
         else:
@@ -37,13 +45,13 @@ class MaskedBatchNorm2d(nn.Module):
             if sample_weights is None:
                 n = float(x.numel() // x.shape[1])
                 denom = max(n - 1.0, 1.0)
-                var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+                var, mean = torch.var_mean(xf, dim=dims, unbiased=False)
             else:
-                w = sample_weights.to(torch.float32).view(-1, 1, 1, 1)
-                n = torch.clamp(w.sum() * (x.shape[2] * x.shape[3]), min=1.0)
+                w = sample_weights.to(torch.float32).view((-1,) + (1,) * (x.dim() - 1))
+                n = torch.clamp(w.sum() * (x.numel() // (x.shape[0] * x.shape[1])), min=1.0)
                 denom = torch.clamp(n - 1.0, min=1.0)
-                mean = (xf * w).sum(dim=(0, 2, 3)) / n
-                var = (w * (xf - mean.view(1, -1, 1, 1)) ** 2).sum(dim=(0, 2, 3)) / n
+                mean = (xf * w).sum(dim=dims) / n
+                var = (w * (xf - mean.view(per_channel)) ** 2).sum(dim=dims) / n
             with torch.no_grad():
                 m = self.momentum
                 unbiased = var.detach() * n / denom
@@ -52,7 +60,25 @@ class MaskedBatchNorm2d(nn.Module):
         # one multiply-add per element, per-channel coefficients in float32
         a = self.weight * torch.rsqrt(var + self.eps)
         b = self.bias - mean * a
-        return x * a.to(x.dtype).view(1, -1, 1, 1) + b.to(x.dtype).view(1, -1, 1, 1)
+        return x * a.to(x.dtype).view(per_channel) + b.to(x.dtype).view(per_channel)
+
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` whose weight and bias start U(-1/sqrt(fan_in),
+    1/sqrt(fan_in)), drawn from ``generator`` on the CPU (weight, then
+    bias)."""
+
+    def __init__(self, fan_in: int, features: int, generator: torch.Generator):
+        super().__init__(fan_in, features)
+        bound = 1.0 / fan_in ** 0.5
+        with torch.no_grad():
+            for p in (self.weight, self.bias):
+                p.copy_((torch.rand(p.shape, generator=generator) * 2.0 - 1.0) * bound)
+
+
+def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    return torch.where(x >= 0, x, slope * x)
 
 
 def init_dcgan_weights(module: nn.Module, generator: torch.Generator) -> None:
@@ -62,6 +88,6 @@ def init_dcgan_weights(module: nn.Module, generator: torch.Generator) -> None:
         for m in module.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
                 m.weight.copy_(torch.randn(m.weight.shape, generator=generator) * 0.02)
-            elif isinstance(m, MaskedBatchNorm2d):
+            elif isinstance(m, MaskedBatchNorm):
                 m.weight.copy_(1.0 + torch.randn(m.weight.shape, generator=generator) * 0.02)
                 m.bias.zero_()

@@ -2,7 +2,9 @@
 `strainer_gan_tpu/obs/metrics.py`).
 
 Keeps the reference's console formats: ``[e/E][i/I]\\tLoss_D: ...`` every
-``log_every`` iterations (`#%basic.py:291-294`) and the strain report
+``log_every`` iterations (`#%basic.py:291-294`), or for the MNIST MLPs
+(``style="mnist"``) ``Epoch [e/E] Step [i/I] d_loss: ... g_loss: ...``
+(`#8.py:140-141`, epoch and step counted from 1), and the strain report
 ``Epoch N: Removed K outliers.`` (`#z_score.py:321`), and the in-step
 mask's ``Epoch N: Filtered CIFAR-10 images: a/b`` (`# 상위 10%...X.py:335-337`).  Loss histories stay
 device tensors until first read, so collecting them never waits for the
@@ -28,8 +30,9 @@ class MetricsLogger:
     """``G_losses`` / ``D_losses`` / ``step_times`` are read-only views built
     afresh at each read (the losses with one device fetch each)."""
 
-    def __init__(self, log_every: int = 50, stream=None):
+    def __init__(self, log_every: int = 50, stream=None, style: str = "dcgan"):
         self.log_every = log_every
+        self.style = style
         self.stream = stream or sys.stdout
         self._g_parts: List[torch.Tensor] = []  # a step's 0-d loss or a chunk's (n,)
         self._d_parts: List[torch.Tensor] = []
@@ -60,6 +63,10 @@ class MetricsLogger:
         self._last = now
 
     def _print(self, epoch: int, num_epochs: int, it: int, steps: int, vals) -> None:
+        if self.style == "mnist":
+            self.stream.write("Epoch [%d/%d] Step [%d/%d] d_loss: %.5f g_loss: %.5f\n"
+                              % (epoch + 1, num_epochs, it + 1, steps, vals[0], vals[1]))
+            return
         self.stream.write(
             "[%d/%d][%d/%d]\tLoss_D: %.4f\tLoss_G: %.4f\t"
             "D(x): %.4f\tD(G(z)): %.4f / %.4f\n"

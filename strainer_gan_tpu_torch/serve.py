@@ -67,11 +67,17 @@ class Sampler:
 
     def _sample_batch(self, z: torch.Tensor) -> torch.Tensor:
         """(batch, nz) noise -> (batch, H, W, C) uint8: G in eval mode (its
-        BatchNorms on their running statistics), ``(x + 1) * 127.5`` clipped
-        to [0, 255] and truncated."""
+        BatchNorms on their running statistics), the MLP's rows reshaped to
+        images (`strainer_gan_tpu/serve.py:60-62`), ``(x + 1) * 127.5``
+        clipped to [0, 255] and truncated."""
         with torch.no_grad(), autocast(z, self.cfg.model.compute_dtype):
             imgs = self.gen(z, train=False)
-        imgs = imgs.to(torch.float32).permute(0, 2, 3, 1)
+        imgs = imgs.to(torch.float32)
+        if imgs.dim() == 2:
+            s = self.cfg.data.image_size
+            imgs = imgs.reshape(-1, s, s, self.cfg.model.nc)
+        else:
+            imgs = imgs.permute(0, 2, 3, 1)
         return torch.clamp((imgs + 1.0) * 127.5, 0, 255).to(torch.uint8)
 
     def _run(self, z: torch.Tensor) -> torch.Tensor:

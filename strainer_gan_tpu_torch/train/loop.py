@@ -38,17 +38,29 @@ config turns the step's in-step keep on from ``fake_concat_start_epoch``
 the pool's rows and the gate as inputs: the gate's flip is a flag filled
 before each replay, not a new capture.
 
+The MNIST MLPs (`loop.py:203-227`): ``auto_batch_divisor`` sets the batch
+from the staged dataset's size, min(max(n // divisor, 16), 64), before
+anything is built from it (so the captures are keyed by that batch); the
+feature trunk takes the flattened rows; a D with dropout takes its keep
+masks from the Trainer's own generator (``drop_rng``), so the noise stream
+is the same with dropout or without it.  ``mnist_full``'s periodic FID
+(`loop.py:738-753`) runs after every ``fid_every_epochs``-th epoch against
+the clean reals, appends ``(epoch, fid_real)`` to ``fid_history`` and
+prints ``Epoch N: FID = v``.
+
 ``epoch_indices`` and ``step_noise`` draw an epoch's batch order and a
-step's noise from the Trainer's generator, and ``pool_order`` and
-``step_pool_rows`` the pool's permutations from its own (``pool_rng``),
-outside any graph and in the per-step order; a test may replace them on
-an instance to hand the port the JAX package's draws.
+step's noise from the Trainer's generator, ``step_dropout`` a step's keep
+masks from ``drop_rng``, and ``pool_order`` and ``step_pool_rows`` the
+pool's permutations from its own (``pool_rng``), outside any graph and in
+the per-step order; a test may replace them on an instance to hand the
+port the JAX package's draws.
 
 ``kernel_launches`` holds how often each CUDA kernel wrapper launched
 during ``run()``.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List, Optional
 
@@ -67,10 +79,12 @@ from ..strain.pool import fake_pool_rows
 from ..utils.trees import finite_check
 from .schedules import lr_at
 from .state import make_optimizers
-from .steps import ChunkedStep, autocast, pool_indices, step_config_from, train_step
+from .steps import (DROP_FORWARDS, ChunkedStep, autocast, pool_indices, step_config_from,
+                    train_step)
 
 BAND_COOLOFF_EVENTS = 5  # f32 strain events after a band overflow (`loop.py:302-308`)
 POOL_SEED_OFFSET = 13  # the fake pool's generator: seeded cfg.train.seed + 13
+DROP_SEED_OFFSET = 17  # D's dropout masks' generator: seeded cfg.train.seed + 17
 
 
 class Trainer:
@@ -90,6 +104,11 @@ class Trainer:
             self.staging_seconds = time.perf_counter() - t0
             dataset = DeviceDataset(mixture, self.device)
         self.dataset = dataset
+        if cfg.data.auto_batch_divisor:
+            # `#8.py:43`: batch = min(max(n // divisor, 16), 64)
+            bs = min(max(dataset.n // cfg.data.auto_batch_divisor, 16), 64)
+            cfg = cfg.replace(data=dataclasses.replace(cfg.data, batch_size=bs))
+            self.cfg = cfg
         gen, disc = build_models(cfg.model, seed=cfg.train.seed)
         self.gen, self.disc = gen.to(self.device), disc.to(self.device)
         self.opt_g, self.opt_d = make_optimizers(cfg, self.gen, self.disc)
@@ -97,11 +116,14 @@ class Trainer:
         s = cfg.strain
         if s.method.startswith("zscore") or s.fake_concat == "pool" or (
                 s.method == "loss_percentile" and s.prefilter):
-            feature_fn = build_feature_fn(s.feature_extractor, cfg.model.nc, self.device)
+            feature_fn = build_feature_fn(
+                s.feature_extractor, cfg.model.nc, self.device,
+                flatten_input_hw=((cfg.data.image_size,) * 2 if cfg.data.flatten else None))
         self.engine = StrainerEngine(cfg, self.disc, self.dataset, feature_fn=feature_fn,
                                      score_batch=cfg.strain.score_batch)
         self.scfg = step_config_from(cfg)
-        self.logger = MetricsLogger(log_every=cfg.train.log_every)
+        self.logger = MetricsLogger(log_every=cfg.train.log_every,
+                                    style="mnist" if cfg.model.arch == "mlp" else "dcgan")
         # one explicit generator for the epoch permutations and the noise
         self.rng = torch.Generator(device=self.device).manual_seed(cfg.train.seed)
         # the fake pool's permutations (its build and each step's rows), from
@@ -109,6 +131,9 @@ class Trainer:
         # without a pool
         self.pool_rng = torch.Generator(device=self.device).manual_seed(
             cfg.train.seed + POOL_SEED_OFFSET)
+        # D's dropout masks, from their own generator too
+        self.drop_rng = torch.Generator(device=self.device).manual_seed(
+            cfg.train.seed + DROP_SEED_OFFSET)
         # the fake-concat configs' device-resident uint8 outlier pool, built
         # by setup() (not the CUDA graphs' memory pool, ``_graph_pool``)
         self.fake_pool: Optional[torch.Tensor] = None
@@ -122,6 +147,7 @@ class Trainer:
         self.mask_history: List[np.ndarray] = []
         self.img_list: List[np.ndarray] = []  # fixed-noise grids (`#%basic.py:226`)
         self.strain_quality: List[Dict] = []
+        self.fid_history: List = []  # (epoch, fid_real) of each periodic FID
         self.epoch_results: List[Dict] = []  # run_epoch's dicts, in order
         self.kernel_launches: Dict[str, int] = {}
         self._iters = 0  # global training iterations so far
@@ -200,6 +226,15 @@ class Trainer:
         return torch.randn((self.cfg.data.batch_size, self.cfg.model.nz), generator=self.rng,
                            device=self.device)
 
+    def step_dropout(self, epoch: int, i: int) -> List[torch.Tensor]:
+        """D's keep masks of step ``i`` of ``epoch``: (3, batch_size, width)
+        bool per hidden width, each element kept with probability 1 - p
+        (``jax.random.bernoulli``'s ``uniform < p`` form); [] without
+        dropout."""
+        keep = 1.0 - self.scfg.dropout
+        return [torch.rand((DROP_FORWARDS, self.cfg.data.batch_size, w), generator=self.drop_rng,
+                           device=self.device) < keep for w in self.scfg.drop_widths]
+
     def pool_order(self, n: int) -> torch.Tensor:
         """A random permutation of ``n`` (the pool's build draws one over the
         dataset, each pool step one over the pool's rows)."""
@@ -268,7 +303,7 @@ class Trainer:
                 self.dataset.source_id[ids], z, lr_g, lr_d, self.scfg, d_train=d_train,
                 lane_count=lanes, mask_on=gate, fake_pool=self.fake_pool,
                 pool_idx=self.step_pool_rows(epoch, i) if pooled else None,
-                concat_on=concat_on,
+                concat_on=concat_on, drop_masks=self.step_dropout(epoch, i) or None,
             )
             self.logger.log_step(epoch, t.epochs, i, steps, metrics)
             if mask_on:
@@ -280,8 +315,11 @@ class Trainer:
             z = torch.stack([self.step_noise(epoch, i + j) for j in range(chunk)])
             rows = (torch.stack([self.step_pool_rows(epoch, i + j) for j in range(chunk)])
                     if pooled else None)
+            drops = [self.step_dropout(epoch, i + j) for j in range(chunk)]
+            drop = [torch.stack(ms) for ms in zip(*drops)]
             # a copy: the next chunk reuses the buffers
-            m = ex(idx[i:i + chunk], z, lr_g, lr_d, pool_idx=rows, concat_on=concat_on)
+            m = ex(idx[i:i + chunk], z, lr_g, lr_d, pool_idx=rows, concat_on=concat_on,
+                   drop=drop)
             self.logger.log_chunk(epoch, t.epochs, i, steps, m, chunk)
             if mask_on:
                 counters.add_(torch.stack([m["n_contam"].sum(), m["n_filtered_contam"].sum()]))
@@ -330,6 +368,15 @@ class Trainer:
             self.engine.last_batch_scores = metrics["score_probs"]
             self.engine.last_batch_mask = metrics["keep_mask"]
             self.engine.last_batch_valid = bs if lanes is None else lanes
+        ev = cfg.eval
+        if ev.fid and ev.fid_every_epochs and (epoch + 1) % ev.fid_every_epochs == 0:
+            # the periodic FID (`# 1,2,8.py:333-359`; `loop.py:738-753`)
+            from ..eval.suite import evaluate_run
+
+            fid = evaluate_run(cfg, self.gen, self.dataset,
+                               n_samples=min(ev.fid_n_samples, self.dataset.n))
+            self.fid_history.append((epoch, fid.get("fid_real")))
+            self.logger.stream.write(f"Epoch {epoch + 1}: FID = {fid.get('fid_real')}\n")
         if losses:
             # the reference's per-epoch ``epoch_losses`` (`# 1,2,8.py:300-303`)
             self.epoch_loss_history.append(torch.cat(losses).cpu().numpy())
@@ -355,7 +402,8 @@ class Trainer:
         return out
 
     def sample(self, n: Optional[int] = None, train_bn: Optional[bool] = None) -> np.ndarray:
-        """Fixed-noise generator output as (N, H, W, C) float32
+        """Fixed-noise generator output as (N, H, W, C) float32, or the
+        MLP's (N, H*W*C) rows, as the JAX package returns them
         (`#%basic.py:301-304`; `strainer_gan_tpu/train/loop.py:794-818`).
 
         The reference never calls ``netG.eval()``: its grids come from
@@ -372,4 +420,7 @@ class Trainer:
         with torch.no_grad():
             for b, k in zip(self.gen.buffers(), kept):
                 b.copy_(k)
-        return imgs.to(torch.float32).permute(0, 2, 3, 1).cpu().numpy()
+        imgs = imgs.to(torch.float32)
+        if imgs.dim() == 4:
+            imgs = imgs.permute(0, 2, 3, 1)
+        return imgs.cpu().numpy()

@@ -1,12 +1,26 @@
-"""The D-first GAN train step, with the in-step quantile mask (counterpart
-of `strainer_gan_tpu/train/steps.py:61-363`, ``_build_step_body``).
+"""The GAN train step, D-first or G-first, with the in-step quantile mask
+(counterpart of `strainer_gan_tpu/train/steps.py:61-363`,
+``_build_step_body``).
 
 Faithful to the reference's update algebra (`#%basic.py:237-288`): ONE G
 forward whose autograd graph the G step reuses; D sees the real batch, then
 the detached fakes (two BN statistic updates), D's Adam step applies, and
 then the G loss re-scores the same fakes through the UPDATED D (a third D
 statistic update, in train mode).  BN statistics thus thread through in
-the reference order (`steps.py:315-321`).
+the reference order (`steps.py:315-321`).  The MNIST baselines update G
+first (``g_before_d``, `#8.py:118-132`, `steps.py:322-331`): G steps
+through the current D, then D steps on the same fakes, made before G's
+update.  G's backward reaches only G's parameters (``backward(inputs=)``),
+so D's update sees none of its gradients.
+
+The MLP's D may drop out (``dropout``, `# 1,2,8.py:110-128`).  Its keep
+masks are inputs of the step, ``drop_masks``: one (3, batch, width) bool
+tensor per hidden width, whose rows 0, 1 and 2 serve D's forward of the
+real batch, of the fakes in D's update and of the fakes in G's update,
+the three forwards the JAX step gives its own dropout keys
+(`steps.py:105-108`).  The step draws nothing, so a captured chunk replays
+the masks its caller filled, as it replays the noise.  ``flatten`` makes
+the real batch (N, H*W*C) rows for the MLP (`steps.py:110-111`).
 
 The per-batch quantile mask (``batch_mask`` with ``mask_on``, `# 상위
 10%...X.py:280-318`, `steps.py:130-190`): a no-grad scoring forward of the
@@ -40,7 +54,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import time
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -63,21 +77,34 @@ class StepConfig(NamedTuple):
     # "bfloat16" runs the forwards under autocast on the card; parameters,
     # BN statistics, losses and Adam stay float32
     compute_dtype: str = "float32"
+    g_before_d: bool = False
+    dropout: float = 0.0  # D's dropout rate (the MLP's)
+    drop_widths: Tuple[int, ...] = ()  # D's hidden widths that drop out, in order
+    flatten: bool = False
+
+
+DROP_FORWARDS = 3  # D forwards a step drops out in: real, fakes in D's update, G's update
+DROP_REAL, DROP_FAKE, DROP_G = range(DROP_FORWARDS)
 
 
 def step_config_from(cfg) -> StepConfig:
-    t, s = cfg.train, cfg.strain
-    if t.g_before_d or cfg.model.d_dropout > 0:
-        raise ValueError("the G-first step and D dropout are not ported yet")
+    t, s, m = cfg.train, cfg.strain, cfg.model
     if s.fake_concat not in ("none", "in_batch", "pool"):
         raise ValueError(f"unknown fake_concat {s.fake_concat!r}")
+    batch_mask = s.method == "batch_quantile_mask"
+    if m.d_dropout > 0 and (batch_mask or s.fake_concat != "none"):
+        raise ValueError("D dropout with the in-step mask or fake concatenation is not "
+                         "supported (no preset combines them)")
     return StepConfig(d_loss_reduction=t.d_loss_reduction, real_label=t.real_label,
-                      fake_label=t.fake_label, batch_mask=s.method == "batch_quantile_mask",
+                      fake_label=t.fake_label, batch_mask=batch_mask,
                       mask_quantile=s.mask_quantile,
                       in_batch_recycle=s.fake_concat == "in_batch",
                       recycle_quantile=s.in_batch_recycle_quantile,
-                      pool_concat=s.fake_concat == "pool", nz=cfg.model.nz,
-                      compute_dtype=cfg.model.compute_dtype)
+                      pool_concat=s.fake_concat == "pool", nz=m.nz,
+                      compute_dtype=m.compute_dtype, g_before_d=t.g_before_d,
+                      dropout=m.d_dropout,
+                      drop_widths=tuple(reversed(m.hidden)) if m.d_dropout > 0 else (),
+                      flatten=cfg.data.flatten)
 
 
 @contextlib.contextmanager
@@ -118,15 +145,17 @@ def train_step(gen: torch.nn.Module, disc: torch.nn.Module,
                lane_count: Optional[int] = None, mask_on: bool = False,
                stem_share: bool = True, fake_pool: Optional[torch.Tensor] = None,
                pool_idx: Optional[torch.Tensor] = None,
-               concat_on: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-    """One D-first step on a normalised NCHW batch ``x`` at rates ``lr_g``,
-    ``lr_d``; updates the modules and optimizers in place and returns the
-    metrics of `steps.py:347-360`.  See ``step_body``."""
+               concat_on: Optional[torch.Tensor] = None,
+               drop_masks: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+    """One step on a normalised NCHW batch ``x`` at rates ``lr_g``, ``lr_d``;
+    updates the modules and optimizers in place and returns the metrics of
+    `steps.py:347-360`.  See ``step_body``."""
     set_lr(opt_g, lr_g)
     set_lr(opt_d, lr_d)
     return step_body(gen, disc, opt_g, opt_d, x, source_id, z, scfg, d_train=d_train,
                      lane_count=lane_count, mask_on=mask_on, stem_share=stem_share,
-                     fake_pool=fake_pool, pool_idx=pool_idx, concat_on=concat_on)
+                     fake_pool=fake_pool, pool_idx=pool_idx, concat_on=concat_on,
+                     drop_masks=drop_masks)
 
 
 def pool_indices(perm: torch.Tensor, b: int) -> torch.Tensor:
@@ -143,7 +172,8 @@ def step_body(gen: torch.nn.Module, disc: torch.nn.Module,
               lane_count: Optional[int] = None, mask_on: bool = False,
               stem_share: bool = True, fake_pool: Optional[torch.Tensor] = None,
               pool_idx: Optional[torch.Tensor] = None,
-              concat_on: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+              concat_on: Optional[torch.Tensor] = None,
+              drop_masks: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
     """The step at the optimizers' current rates: what ``ChunkedStep``
     captures.  It reads nothing back to the host and makes no tensor from
     host data, so a CUDA graph can capture it.
@@ -166,9 +196,23 @@ def step_body(gen: torch.nn.Module, disc: torch.nn.Module,
       ``pool_idx`` (b,), gathered and normalised here; the pool lanes weigh
       ``concat_on`` (a 0-d float32 device flag, 1 from the gate epoch on,
       else 0) times the generated lanes' weights, and D_G_z1 covers the
-      generated lanes only.  G trains on its generated fakes alone."""
+      generated lanes only.  G trains on its generated fakes alone.
+
+    ``drop_masks``: D's keep masks, (3, b, width) bool per hidden width of
+    a D with dropout (rows ``DROP_REAL``, ``DROP_FAKE``, ``DROP_G``)."""
     b = x.shape[0]
     dev = x.device
+    if scfg.flatten:
+        x = x.reshape(b, -1)
+    if scfg.dropout > 0 and (drop_masks is None or len(drop_masks) != len(scfg.drop_widths)):
+        raise ValueError(f"a step of D with dropout needs {len(scfg.drop_widths)} keep masks")
+    stem_share = stem_share and hasattr(disc, "stem") and scfg.dropout == 0
+
+    def d_fwd(inp, w, row):
+        if scfg.dropout > 0:
+            return disc(inp, w, train=d_train, drop_masks=[m[row] for m in drop_masks])
+        return disc(inp, w, train=d_train)
+
     if scfg.pool_concat and not isinstance(concat_on, torch.Tensor):
         concat_on = torch.full((), float(bool(concat_on)), device=dev)  # a fill, no copy
     valid = None
@@ -215,10 +259,13 @@ def step_body(gen: torch.nn.Module, disc: torch.nn.Module,
             use_real = torch.logical_not(keep)
             if valid is not None:
                 use_real = torch.logical_and(use_real, valid)  # pads stay fake slots
-            combined = torch.where(use_real.view(-1, 1, 1, 1), x.to(imgs.dtype), imgs)
+            combined = torch.where(use_real.view((-1,) + (1,) * (x.dim() - 1)),
+                                   x.to(imgs.dtype), imgs)
             return combined, valid_w, None
         if scfg.pool_concat:
             pool_x = normalize_u8(fake_pool.index_select(0, pool_idx), torch.float32)
+            if scfg.flatten:
+                pool_x = pool_x.reshape(b, -1)
             gen_w = torch.ones((b,), dtype=torch.float32, device=dev) if valid_w is None \
                 else valid_w
             w = torch.cat([gen_w, concat_on * gen_w])
@@ -226,28 +273,40 @@ def step_body(gen: torch.nn.Module, disc: torch.nn.Module,
                 [gen_w, torch.zeros_like(gen_w)])
         return imgs, w_fake, None
 
-    # ---- D update: real, then detached fakes
-    opt_d.zero_grad(set_to_none=True)
-    fake_d, w_fd, gen_slot = fake_batch(fake.detach())
-    with amp:
-        out_r = (disc.head(h_real, w_real, train=d_train) if h_real is not None
-                 else disc(x, w_real, train=d_train))
-        out_f = disc(fake_d, w_fd, train=d_train)
-    per_real = L.bce_from_logits(out_r, real_t)
-    per_fake = L.bce_from_logits(out_f, fake_t)
-    err_d = L.d_loss(per_real, per_fake, scfg.d_loss_reduction, w_real, w_fd)
-    err_d.backward()
-    opt_d.step()
+    def d_update():
+        """D's update on the real batch, then the detached fakes."""
+        opt_d.zero_grad(set_to_none=True)
+        fake_d, w_fd, gen_slot = fake_batch(fake.detach())
+        with amp:
+            out_r = (disc.head(h_real, w_real, train=d_train) if h_real is not None
+                     else d_fwd(x, w_real, DROP_REAL))
+            out_f = d_fwd(fake_d, w_fd, DROP_FAKE)
+        per_real = L.bce_from_logits(out_r, real_t)
+        per_fake = L.bce_from_logits(out_f, fake_t)
+        err_d = L.d_loss(per_real, per_fake, scfg.d_loss_reduction, w_real, w_fd)
+        err_d.backward()
+        opt_d.step()
+        return err_d, out_r, out_f, per_real, per_fake, w_fd, gen_slot
 
-    # ---- G update through the updated D: on the recycled batch, or on the
-    # generated fakes alone
-    opt_g.zero_grad(set_to_none=True)
-    fake_g, w_fg = fake_batch(fake)[:2] if recycle else (fake, w_fake)
-    with amp:
-        out_g = disc(fake_g, w_fg, train=d_train)
-    err_g = L.weighted_mean(L.bce_from_logits(out_g, real_t), w_fg)
-    err_g.backward(inputs=list(gen.parameters()))
-    opt_g.step()
+    def g_update():
+        """G's update through D as it stands: on the recycled batch, or on
+        the generated fakes alone; its backward reaches G's parameters
+        only."""
+        opt_g.zero_grad(set_to_none=True)
+        fake_g, w_fg = fake_batch(fake)[:2] if recycle else (fake, w_fake)
+        with amp:
+            out_g = d_fwd(fake_g, w_fg, DROP_G)
+        err_g = L.weighted_mean(L.bce_from_logits(out_g, real_t), w_fg)
+        err_g.backward(inputs=list(gen.parameters()))
+        opt_g.step()
+        return err_g, out_g, w_fg
+
+    if scfg.g_before_d:  # `#8.py:118-132`
+        err_g, out_g, w_fg = g_update()
+        err_d, out_r, out_f, per_real, per_fake, w_fd, gen_slot = d_update()
+    else:
+        err_d, out_r, out_f, per_real, per_fake, w_fd, gen_slot = d_update()
+        err_g, out_g, w_fg = g_update()
 
     with torch.no_grad():
         contam = source_id != 0
@@ -286,7 +345,10 @@ class ChunkedStep:
     eagerly over the same buffers.
 
     Static inputs: ``idx`` (chunk, batch) sample indices and ``z`` (chunk,
-    batch, nz) noise, filled from the caller's draws at each call; each
+    batch, nz) noise, filled from the caller's draws at each call (and, for
+    a D with dropout, ``drop``: D's keep masks, one (chunk, 3, batch,
+    width) bool buffer per hidden width, filled the same way, so each
+    replay drops out with fresh masks); each
     step gathers and normalises its batch from the dataset inside the
     chunk, as the JAX scan's ``jnp.take`` does.  With a ``fake_pool`` (the
     pool configs), also ``pool_idx`` (chunk, batch), each step's pool rows,
@@ -324,6 +386,8 @@ class ChunkedStep:
         self.z = torch.zeros((chunk, b, scfg.nz), dtype=torch.float32, device=dev)
         self.pool_idx = torch.zeros((chunk, b), dtype=torch.int64, device=dev)
         self.concat_on = torch.zeros((), dtype=torch.float32, device=dev)
+        self.drop = [torch.zeros((chunk, DROP_FORWARDS, b, w), dtype=torch.bool, device=dev)
+                     for w in scfg.drop_widths]
         self.out = {k: torch.zeros((chunk,) + tuple(v.shape), dtype=v.dtype, device=dev)
                     for k, v in like.items()}
         self.graph = None
@@ -337,7 +401,8 @@ class ChunkedStep:
                           normalize_u8(ds.gather(ids), torch.float32), ds.source_id[ids],
                           self.z[j], self.scfg, d_train=self.d_train, mask_on=self.mask_on,
                           stem_share=self.stem_share, fake_pool=self.fake_pool,
-                          pool_idx=self.pool_idx[j], concat_on=self.concat_on)
+                          pool_idx=self.pool_idx[j], concat_on=self.concat_on,
+                          drop_masks=[m[j] for m in self.drop] or None)
             for k, v in m.items():
                 self.out[k][j].copy_(v)
 
@@ -367,13 +432,19 @@ class ChunkedStep:
 
     def __call__(self, idx: torch.Tensor, z: torch.Tensor, lr_g: float, lr_d: float,
                  pool_idx: Optional[torch.Tensor] = None,
-                 concat_on: bool = False) -> Dict[str, torch.Tensor]:
+                 concat_on: bool = False,
+                 drop: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         """Run the chunk on ``idx`` (chunk, batch) and ``z`` (chunk, batch, nz)
         at rates ``lr_g``, ``lr_d`` (with a fake pool: on its rows
-        ``pool_idx`` (chunk, batch), gated by ``concat_on``); returns the
-        stacked metrics."""
+        ``pool_idx`` (chunk, batch), gated by ``concat_on``; with dropout:
+        D's keep masks ``drop``, (chunk, 3, batch, width) per hidden width);
+        returns the stacked metrics."""
         self.idx.copy_(idx)
         self.z.copy_(z)
+        for buf, m in zip(self.drop, drop or ()):
+            buf.copy_(m)
+        if len(drop or ()) != len(self.drop):
+            raise ValueError(f"this chunk takes {len(self.drop)} keep-mask buffers")
         if self.fake_pool is not None:
             self.pool_idx.copy_(pool_idx)
             self.concat_on.fill_(float(concat_on))

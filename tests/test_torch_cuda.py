@@ -32,7 +32,10 @@ that cannot be captured raises instead of running eagerly.  The
 The capturable Adam meets the JAX package's updates
 (``tests/fixtures/torch_port_jax_adam.npz``) at 1e-5, eagerly and
 replayed; the recycling and pooled fake-concat steps replay bit-equal to
-eager steps across their gates.
+eager steps across their gates.  The MNIST MLP steps (G first; D first
+with dropout) replay bit-equal to eager steps, with fresh keep masks each
+replay, and the FID chain (InceptionV3, the matrix square root) meets the
+backbone fixture on the card in float32.
 """
 import numpy as np
 import pytest
@@ -571,6 +574,99 @@ def test_fake_concat_replay_equals_eager(cuda_device, preset):
     else:
         assert a.graph_stats["captures"] == 1
         assert a.fake_pool.is_cuda and torch.equal(a.fake_pool, b.fake_pool)
+
+
+def _mnist_cfg(preset, spd):
+    import dataclasses
+
+    from strainer_gan_tpu_torch import get_preset
+
+    cfg = get_preset(preset)
+    # mnist_full's prefilter keeps about half of its 360 images: batch 16
+    # gives each epoch a warm-up step or a chunk and a remainder
+    data = cfg.data if cfg.data.auto_batch_divisor else dataclasses.replace(cfg.data,
+                                                                             batch_size=16)
+    return cfg.replace(data=data, train=dataclasses.replace(cfg.train, epochs=2, log_every=3,
+                                                            steps_per_dispatch=spd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["mnist8", "mnist_full"])
+def test_mlp_replay_equals_eager(cuda_device, preset, monkeypatch):
+    """The MLP step, bf16 as shipped: steps_per_dispatch=4 (graph replays)
+    against =1 (eager), from the same initial state and draws, bit for
+    bit: G first for ``mnist8`` (auto batch), D first with dropout, label
+    smoothing and G's BatchNorm1d for ``mnist_full`` (after its 1-channel
+    z-score prefilter).  Consecutive replays of ``mnist_full`` see fresh
+    keep masks."""
+    import io
+
+    from strainer_gan_tpu_torch.train import steps as ST
+    from strainer_gan_tpu_torch.train.loop import Trainer
+
+    seen = []
+    call = ST.ChunkedStep.__call__
+
+    def watched(self, idx, z, lr_g, lr_d, **kw):
+        seen.append([m.clone() for m in kw.get("drop") or ()])
+        return call(self, idx, z, lr_g, lr_d, **kw)
+
+    monkeypatch.setattr(ST.ChunkedStep, "__call__", watched)
+    runs = []
+    for spd in (4, 1):
+        tr = Trainer(_mnist_cfg(preset, spd), max_synth=3000,
+                     dataset=runs[0].dataset if runs else None)
+        tr.logger.stream = io.StringIO()
+        tr.setup()
+        for e in range(2):
+            tr.run_epoch(e)
+        runs.append(tr)
+    a, b = runs
+    _assert_bit_equal(a, b)
+    assert a.graph_stats["replays"] >= 2 and b.graph_stats["replays"] == 0
+    if preset == "mnist_full":
+        masks = [m for m in seen if m]
+        assert len(masks) >= 2 and all(m[0].shape[1:] == (3, 16, 1024) for m in masks)
+        assert all(not torch.equal(x[0], y[0]) for x, y in zip(masks, masks[1:]))
+        keep = float(masks[0][0].float().mean())
+        assert 0.65 < keep < 0.75
+    else:
+        assert a.cfg.data.batch_size == min(max(a.dataset.n // 10, 16), 64)
+
+
+@pytest.mark.cuda
+def test_fid_chain_on_the_card(cuda_device):
+    """InceptionV3 (synthetic weights) and the FID chain on the card, in
+    float32 with TF32 off: the fixture's activations within atol 2e-3 and
+    its FID within rtol 2e-2 (tests/test_backbone_fixtures.py's bounds);
+    the Newton-Schulz and eigh traces of a well-conditioned 2048-dim pair
+    within 1e-3 of each other."""
+    import os
+
+    from strainer_gan_tpu_torch.eval import fid as TF
+    from strainer_gan_tpu_torch.models.inception import InceptionV3Features
+    from strainer_gan_tpu_torch.models.synth_weights import load_synth_weights
+    from strainer_gan_tpu_torch.ops import sqrtm as TS
+
+    fx = np.load(os.path.join(os.path.dirname(__file__), "fixtures", "backbones.npz"))
+    model = load_synth_weights(InceptionV3Features()).eval().to(cuda_device)
+
+    def nchw(u8):
+        x = ((u8.astype(np.float32) / 255.0) - 0.5) / 0.5
+        return torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().to(cuda_device)
+
+    acts = TF.get_activations(nchw(fx["fid_a_u8"]), model, batch_size=16)
+    np.testing.assert_allclose(acts.cpu().numpy(), fx["inception_acts_a"], atol=2e-3)
+    fid = TF.calculate_fid(nchw(fx["fid_a_u8"]), nchw(fx["fid_b_u8"]), model, batch_size=16)
+    np.testing.assert_allclose(fid, float(fx["fid_value"]), rtol=2e-2)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    pair = []
+    for _ in range(2):
+        a = torch.randn((4096, 2048), generator=g, device=cuda_device)
+        pair.append(a.T @ a / 4096 + 0.1 * torch.eye(2048, device=cuda_device))
+    ns = float(TS.trace_sqrtm_product_ns(*pair))
+    eig = float(TS.trace_sqrtm_product(*pair))
+    assert abs(ns - eig) <= 1e-3 * abs(eig)
 
 
 @pytest.mark.cuda
