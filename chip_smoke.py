@@ -84,12 +84,30 @@ script exits non-zero without printing its result line:
    masked steps: device operations per step, the device-busy share of the
    traced wall time and the ten operations with the most device time.
    chunked (batch_mask): the preset on the same images with
-   ``mask_start_epoch=1``, 3 epochs at ``steps_per_dispatch`` 32 and 1,
+   ``mask_start_epoch=1``, 3 epochs (its configuration's epochs) at
+   ``steps_per_dispatch`` 32 and 1,
    bit-equal as above (with the contamination counters and the parity
    report's last batch); then ms/step of replayed chunks against eager
    steps, masked and unmasked (synchronised), and a replayed masked chunk's
    device time (CUDA events) against its time through the executor, with a
    trace of two replayed chunks.
+   dp: the data-parallel rank path on the card.  A child process (this
+   script with ``--dp-child <dir>``) gets a launcher's environment of one
+   rank (``RANK=0 WORLD_SIZE=1``, a free ``MASTER_PORT``), so ``--dp 1``
+   joins an NCCL group and the Trainer takes the rank path: its BatchNorm
+   sums, loss denominators, gathered scores, gradient buckets and metrics
+   go through NCCL collectives, recorded into the chunked executor's CUDA
+   graphs.  Started after phase 5, it trains, beside phases 6-9 (whose
+   seconds therefore include its load), ``batch_mask`` gated from epoch 1
+   for 3 epochs (``--max-synth 4096``, a config JSON: the chunked phase's
+   configuration) and ``zscore_loss`` as phase 9 runs it (the K2 prefilter, then the epoch-3 loss strain
+   through the row-sharded scoring pass and K1), then waits, idle, until
+   the chunked phase is done; each run must be bit-equal to the same run
+   with no group, phase 9's and the chunked phase's (parameters,
+   BatchNorm buffers, Adam state, losses, per-sample history, masks, last
+   metrics, grids, console text).  Prints the collectives, K1/K2a/K2b's
+   launches on the rank path, and the replayed masked step's ms with and
+   without the collectives, each timed alone on the card.
 11. in_batch_recycle: through the command line with ``--epochs 4
    --max-synth 4500`` across its gate epoch (3): the reals the in-step keep
    drops replace fakes in D's fake batch; the same run at
@@ -110,14 +128,14 @@ script exits non-zero without printing its result line:
    ``steps_per_dispatch=1`` bit-equal, its 28x28 grey grids read back,
    ms/step replayed and eager, and a ``Sampler`` serving its checkpoint
    (ms a batch of 64, replayed and eager, replayed batches bit-equal).
-14. mnist_full: through the command line with ``--epochs 100
-   --parity-check``: the 1-channel ResNet18 z-score prefilter (K2a and
+14. mnist_full: through the command line, for 20 epochs with its FID every
+   20 (a config JSON), and ``--parity-check``: the 1-channel ResNet18 z-score prefilter (K2a and
    K2b at ``numpy_eps``, launched on the path) with a mask equal to the
    plain path's on the card and both kernels timed at its shape; the
    D-first dropout step, G with BatchNorm1d, labels 0.9/0.1 (a replayed
    chunk bit-equal to its 32 eager steps on the same noise and keep masks,
    consecutive replays with fresh masks, ms/step replayed and eager); the
-   periodic FID at epoch 100 (real and contaminant, finite, with the
+   periodic FID at epoch 20 (real and contaminant, finite, with the
    seconds of the activation passes and of the square root, and its
    branch); the parity report at 1.0.
 15. fid: the FID chain on ``tests/fixtures/backbones.npz`` (InceptionV3
@@ -125,6 +143,15 @@ script exits non-zero without printing its result line:
    of the fixture, the FID within 2e-2 relative of its scipy value, and
    the Newton-Schulz trace within 1e-3 of eigh's on a well-conditioned
    2048-dimensional pair, each timed.
+16. eval: the eval suite's ResNet50 (synthetic weights, float32 with TF32
+   off) on the fixture's ``resnet50_features`` (rtol 1e-3, atol 1e-2, the
+   JAX test's); the card's PCA-50 Wasserstein and mean feature distances
+   on 409 x 2048 and 500 x 2048 seeded features held to float64 numpy
+   (SVD, svd_flip, scipy's 1-D Wasserstein) at 1e-3 and 1e-5 relative;
+   then ``strainer_gan`` through the command line with ``--epochs 1
+   --max-synth 2560 --eval --eval-samples 500``: the six values finite and
+   in ``metrics.json``, with the seconds of the feature passes, the SVDs
+   and the FIDs.
 
 Before the fixtures, the adam phase holds the card's capturable Adam
 (``train/state.py::make_adam``) to the JAX package's ``optax.scale_by_adam``
@@ -163,16 +190,25 @@ Deviations from the presets, each for a reason:
 - ``batch_mask``: ``--epochs 11`` (epoch 10 is the first gated one) and
   ``--max-synth 4096`` (4,096 CelebA-like and 409 CIFAR-like images); in
   the chunked phase ``mask_start_epoch=1`` and 3 epochs on the same images
-  (the gate within 3 epochs, for a run made twice).
+  (the gate within 3 epochs, for a run made twice; its configuration says
+  3 epochs, so that the dp child's command-line run is the same run).
 - ``in_batch_recycle``: ``--epochs 4`` (epoch 3 is its gate) and
   ``--max-synth 4500`` (36 steps an epoch with a 20-lane tail: after the
   run's first step, a sample point, a warm-up step and a chunk of 32).
 - ``strainer_concat_fast``: ``--epochs 4`` (epoch 3 is its gate and first
   loss strain) and ``--max-synth 4096`` per source (8,192 images).
 - ``mnist8``: ``--epochs 2`` of 300 (every epoch is the same step).
-- ``mnist_full``: ``--epochs 100`` of 300: the first periodic FID, at its
-  shipped cadence of 100 epochs.  Its data is whole (three synthetic
+- ``mnist_full``: 20 epochs of 300 with ``fid_every_epochs=20`` (shipped
+  100), through a config JSON: the periodic FID still fires on the shipped
+  path, at epoch 20.  Its 100 epochs took 48.5-56.1 s, most of it the
+  eager remainder steps, and the script must stay well inside its time
+  limit as phases are added.  Its data is whole (three synthetic
   60,000-image digit sources, as shipped).
+- ``strainer_gan`` (eval): ``--epochs 1 --max-synth 2560`` per source (40
+  steps, so that the epoch holds a chunk): the suite needs a trained G,
+  not a long run.
+- dp: world size 1 (the machine has one card); ``batch_mask`` and
+  ``zscore_loss`` as their other phases cut them.
 
 The second-to-last lines are one JSON object of per-kernel results and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -987,6 +1023,10 @@ def basic_phase(torch, np):
           f"s, {time.perf_counter() - t0:.2f} s in all; no strain; {graphs(tr, 'basic')}")
 
 
+ZSCORE_LOSS_ARGS = ["--preset", "zscore_loss", "--epochs", "4", "--max-synth", "2560",
+                    "--parity-check"]
+
+
 def zscore_loss_phase(torch, np):
     """``zscore_loss`` through the command line, epochs 0-3: the elbow
     prefilter (K2a, K2b), then the epoch-3 loss strain by the band path (K1)."""
@@ -994,10 +1034,10 @@ def zscore_loss_phase(torch, np):
     from strainer_gan_tpu_torch.parity import oracle
     from strainer_gan_tpu_torch.strain import thresholds as TH
 
-    args = ["--preset", "zscore_loss", "--epochs", "4", "--max-synth", "2560", "--parity-check"]
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    tr, results = cli.run(args)
+    with contextlib.redirect_stdout(Tee(sys.stdout)) as tee:
+        tr, results = cli.run(ZSCORE_LOSS_ARGS)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = kernels.launch_counts()
@@ -1037,6 +1077,7 @@ def zscore_loss_phase(torch, np):
           f"{drift:.3g}); parity {parity.get('agreement')}; {results['summary']['steps']} "
           f"steps, {seconds:.2f} s in all; kernels {json.dumps(launches)}; "
           f"{graphs(tr, 'zscore_loss')}")
+    return tr, tee.copy.getvalue()
 
 
 def zscore_dbscan_phase(torch, np):
@@ -1717,14 +1758,17 @@ def chunked_final(torch, np, tr, console: str, ckpt: Path):
 
 def chunked_batch_mask(torch, np, bm):
     """``batch_mask`` at steps_per_dispatch 32 and 1 on the CLI phase's
-    images, gated from epoch 1; then replayed against eager steps, timed,
-    and the device-busy share of a replayed chunk."""
+    images, gated from epoch 1, for 3 epochs; then replayed against eager
+    steps, timed, and the device-busy share of a replayed chunk.  Returns
+    the first run's snapshot (``run_snapshot``, taken before the timing)
+    and its Trainer."""
     from strainer_gan_tpu_torch.data import normalize_u8
     from strainer_gan_tpu_torch.obs import profiler
     from strainer_gan_tpu_torch.train.loop import Trainer
     from strainer_gan_tpu_torch.train.steps import train_step
 
-    base = bm.cfg.replace(strain=dataclasses.replace(bm.cfg.strain, mask_start_epoch=1))
+    base = bm.cfg.replace(strain=dataclasses.replace(bm.cfg.strain, mask_start_epoch=1),
+                          train=dataclasses.replace(bm.cfg.train, epochs=3))
     runs = []
     for spd in (base.train.steps_per_dispatch, 1):
         tr = Trainer(base.replace(train=dataclasses.replace(base.train, steps_per_dispatch=spd)),
@@ -1740,6 +1784,8 @@ def chunked_batch_mask(torch, np, bm):
                               b.logger.stream.getvalue(),
 f"batch_mask steps_per_dispatch={a.cfg.train.steps_per_dispatch} vs "
                               "1, epoch 0 ungated, 1-2 masked") + f"; {graphs(a, 'chunked batch_mask')}")
+    # the dp phase's run with no group: this run, before the timing below
+    snapshot = run_snapshot(torch, a, a.logger.stream.getvalue(), {})
 
     ds, bs, nz, chunk = a.dataset, base.data.batch_size, base.model.nz, a.cfg.train.steps_per_dispatch
     idx = a.epoch_indices(9, torch.ones((ds.n,), dtype=torch.bool, device="cuda"), chunk)
@@ -1798,6 +1844,7 @@ f"batch_mask steps_per_dispatch={a.cfg.train.steps_per_dispatch} vs "
     if summary["device_busy_ms"] > 0:
         for op in summary["top"][:6]:
             phase("chunked", f"  {op['ms']:9.3f} ms  x{op['count']:5d}  {op['name'][:110]}")
+    return snapshot, a
 
 
 def serve_phase(torch, np, ckpt: Path):
@@ -2093,12 +2140,16 @@ def mnist8_phase(torch, np, out_dir: Path):
           f"ms a batch of 64: replayed {rep:.3f}, eager {eag:.3f}")
 
 
+MNIST_FULL_EPOCHS = 20  # and its periodic FID every 20 epochs (shipped: 300 and 100)
+
+
 def mnist_full_phase(torch, np, out_dir: Path):
-    """``mnist_full`` through the command line for 100 epochs: the
-    1-channel z-score prefilter (K2a, K2b at numpy_eps) held to the plain
-    path on the card, the D-first dropout step (a replayed chunk bit-equal
-    to its 32 eager steps, fresh masks every replay), the periodic FID at
-    epoch 100 and the parity report."""
+    """``mnist_full`` through the command line for 20 epochs (a config JSON
+    with ``fid_every_epochs=20``): the 1-channel z-score prefilter (K2a,
+    K2b at numpy_eps) held to the plain path on the card, the D-first
+    dropout step (a replayed chunk bit-equal to its 32 eager steps, fresh
+    masks every replay), the periodic FID at epoch 20 and the parity
+    report."""
     from strainer_gan_tpu_torch import cli, get_preset, kernels
     from strainer_gan_tpu_torch.eval import fid as FID
     from strainer_gan_tpu_torch.kernels import zscore as KZ
@@ -2106,9 +2157,16 @@ def mnist_full_phase(torch, np, out_dir: Path):
     from strainer_gan_tpu_torch.strain import thresholds as TH
     from strainer_gan_tpu_torch.train import steps as ST
 
-    args = ["--preset", "mnist_full", "--epochs", "100", "--out", str(out_dir),
-            "--parity-check"]
-    phase("mnist_full", "python -m strainer_gan_tpu_torch.cli " + " ".join(args))
+    shipped = get_preset("mnist_full")
+    want = shipped.replace(
+        train=dataclasses.replace(shipped.train, epochs=MNIST_FULL_EPOCHS),
+        eval=dataclasses.replace(shipped.eval, fid_every_epochs=MNIST_FULL_EPOCHS))
+    config = out_dir / "mnist_full.json"
+    config.write_text(want.to_json())
+    args = ["--config", str(config), "--out", str(out_dir), "--parity-check"]
+    phase("mnist_full", "python -m strainer_gan_tpu_torch.cli " + " ".join(args)
+          + f" (mnist_full with epochs={MNIST_FULL_EPOCHS}, "
+          f"fid_every_epochs={MNIST_FULL_EPOCHS})")
     # the masks of the first replays' first steps, to see that they change
     seen, call = [], ST.ChunkedStep.__call__
 
@@ -2133,9 +2191,8 @@ def mnist_full_phase(torch, np, out_dir: Path):
     total = time.perf_counter() - t0
     launches = kernels.launch_counts()
     staging(tr, "mnist_full")
-    cfg, shipped = tr.cfg, get_preset("mnist_full")
-    check(cfg == shipped.replace(train=dataclasses.replace(shipped.train, epochs=100)),
-          "the mnist_full preset was changed beyond --epochs")
+    cfg = tr.cfg
+    check(cfg == want, "the mnist_full preset was changed beyond its epochs and FID cadence")
     check(launches["zscore_column_stats"] >= 1 and launches["zscore_row_max"] >= 1,
           f"mnist_full's prefilter did not launch K2a and K2b: {launches}")
     check(results["parity"]["agreement"] == 1.0, f"mnist_full parity {results['parity']}")
@@ -2185,7 +2242,7 @@ def mnist_full_phase(torch, np, out_dir: Path):
           f"plain_ms={t_bp:.5f} bound_ms={bb:.5f}; the feature pass {feat_s * 1e3:.1f} ms "
           f"({CARD}); kernels {json.dumps(launches)}")
     phase("mnist_full", f"whole CLI run {total:.2f} s, {sum(r['steps'] for r in tr.epoch_results)}"
-          f" steps over 100 epochs, batch {cfg.data.batch_size}, D dropout {sd.dropout}, labels "
+          f" steps over {MNIST_FULL_EPOCHS} epochs, batch {cfg.data.batch_size}, D dropout {sd.dropout}, labels "
           f"{sd.real_label}/{sd.fake_label}; parity {results['parity']['agreement']}; "
           f"{graphs(tr, 'mnist_full')}")
 
@@ -2211,15 +2268,17 @@ def mnist_full_phase(torch, np, out_dir: Path):
           f"replays each with fresh masks; ms/step, synchronised, batch "
           f"{cfg.data.batch_size} ({CARD}): replayed {t_rep:.4f}, eager {t_eag:.4f}")
 
-    # the periodic FID of epoch 100
-    check([e for e, _ in tr.fid_history] == [99], f"FID history {tr.fid_history}")
+    # the periodic FID of the last epoch
+    check([e for e, _ in tr.fid_history] == [MNIST_FULL_EPOCHS - 1],
+          f"FID history {tr.fid_history}")
     calls = FID.calls[n_fid:]
     check(len(calls) == 2, f"{len(calls)} FID computations, want real and contaminant")
     check(all(np.isfinite(c["fid"]) for c in calls), f"non-finite periodic FID {calls}")
     check(tr.fid_history[0][1] == calls[0]["fid"]
-          and f"Epoch 100: FID = {calls[0]['fid']}" in tee.copy.getvalue(),
+          and f"Epoch {MNIST_FULL_EPOCHS}: FID = {calls[0]['fid']}" in tee.copy.getvalue(),
           "the periodic FID's console line is missing")
-    phase("mnist_full", "periodic FID (epoch 100, L2-normalised activations, synthetic "
+    phase("mnist_full", f"periodic FID (epoch {MNIST_FULL_EPOCHS}, L2-normalised activations, "
+          "synthetic "
           "InceptionV3 weights): " + "; ".join(
               f"{name} {c['fid']:.6g} on {c['n']} images, activations {c['activations_s']:.3f} s,"
               f" sqrtm {c['distance_s']:.3f} s ({c['branch']})"
@@ -2279,6 +2338,300 @@ def fid_phase(torch, np):
           f"{per_img:.3f} ms an image ({CARD})")
 
 
+EVAL_ARGS = ["--preset", "strainer_gan", "--epochs", "1", "--max-synth", "2560", "--eval",
+             "--eval-samples", "500"]
+EVAL_KEYS = ("feature_distance_real", "wasserstein_real", "feature_distance_contaminant",
+             "wasserstein_contaminant", "fid_real", "fid_contaminant")
+
+
+def spectrum_features(np, rng, n: int, basis) -> "np.ndarray":
+    """``n`` seeded 2048-dim feature rows with a decaying spectrum (64
+    directions, each 0.9 of the last, plus a little noise), so that the top
+    50 principal components are well separated."""
+    k = basis.shape[0]
+    x = (rng.standard_normal((n, k)) * 0.9 ** np.arange(k)) @ basis
+    return (x + 0.01 * rng.standard_normal((n, basis.shape[1]))).astype(np.float32)
+
+
+def numpy_pca_wasserstein(np, f1, f2, k: int = 50) -> float:
+    """The suite's PCA-Wasserstein distance in float64 numpy: an SVD of the
+    centred ``f1``, sklearn's svd_flip signs, ``f2`` projected, and the mean
+    over components of scipy's 1-D Wasserstein distance."""
+    from scipy.stats import wasserstein_distance
+
+    f1, f2 = f1.astype(np.float64), f2.astype(np.float64)
+    mean = f1.mean(0)
+    _, _, vt = np.linalg.svd(f1 - mean, full_matrices=False)
+    comps = vt[:k]
+    comps = comps * np.sign(comps[np.arange(k), np.abs(comps).argmax(1)])[:, None]
+    p1, p2 = (f1 - mean) @ comps.T, (f2 - mean) @ comps.T
+    return float(np.mean([wasserstein_distance(p1[:, i], p2[:, i]) for i in range(k)]))
+
+
+def eval_phase(torch, np, out_dir: Path):
+    """The eval suite on the card: ResNet50 on the backbone fixture, the
+    distances against float64 numpy, then ``strainer_gan`` through the
+    command line with ``--eval``."""
+    from strainer_gan_tpu_torch import cli, kernels
+    from strainer_gan_tpu_torch.eval import distances as DI
+    from strainer_gan_tpu_torch.eval import fid as FID
+    from strainer_gan_tpu_torch.eval import suite as SU
+    from strainer_gan_tpu_torch.models.features import build_feature_fn
+
+    # ResNet50 (synthetic weights) against the torch oracle's features
+    fx = np.load(HERE / "tests" / "fixtures" / "backbones.npz")
+    x = ((fx["resnet_input_u8"].astype(np.float32) / 255.0) - 0.5) / 0.5
+    t0 = time.perf_counter()
+    ffn = build_feature_fn("resnet50", 3, "cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    got = ffn(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().cuda()).cpu().numpy()
+    want = fx["resnet50_features"]
+    err = np.abs(got - want)
+    check(bool(np.all(err <= 1e-2 + 1e-3 * np.abs(want))),
+          f"ResNet50 off the fixture: max abs {err.max():.3g}")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    imgs = torch.rand((256, 3, 64, 64), generator=g, device="cuda") * 2 - 1
+    rn_ms = time_ms(torch, lambda: ffn(imgs), iters=5, warmup=1) / 256
+
+    # the distances against float64 numpy, at the suite's shapes
+    rng = np.random.default_rng(17)
+    basis = rng.standard_normal((64, 2048))
+    fake, cont = spectrum_features(np, rng, 500, basis), spectrum_features(np, rng, 409, basis)
+    fake[:, :64] += 0.5  # a shifted distribution
+    tf, tc = torch.from_numpy(fake).cuda(), torch.from_numpy(cont).cuda()
+    w = float(DI.pca_wasserstein_distance(tc, tf))
+    d = float(DI.mean_feature_distance(tc, tf))
+    w_np = numpy_pca_wasserstein(np, cont, fake)
+    d_np = float(np.linalg.norm(cont.astype(np.float64).mean(0) - fake.astype(np.float64).mean(0)))
+    rel_w, rel_d = abs(w - w_np) / abs(w_np), abs(d - d_np) / abs(d_np)
+    check(rel_w <= 1e-3, f"PCA-Wasserstein {w} vs float64 numpy {w_np} (rel {rel_w:.3g})")
+    check(rel_d <= 1e-5, f"mean feature distance {d} vs float64 numpy {d_np} (rel {rel_d:.3g})")
+    svd_ms = time_ms(torch, lambda: torch.linalg.svd(tc - tc.mean(0), full_matrices=False),
+                     iters=5, warmup=1)
+    pw_ms = time_ms(torch, lambda: DI.pca_wasserstein_distance(tc, tf), iters=5, warmup=1)
+    phase("eval", f"ResNet50 (synthetic weights, float32, TF32 off) on backbones.npz: max abs "
+          f"err {err.max():.3g} (tol 1e-2 + 1e-3|ref|), built in {build_s:.2f} s, "
+          f"{rn_ms:.4f} ms an image at batch 256 (64x64); 409 vs 500 x 2048 features: "
+          f"PCA-50 Wasserstein {w:.7g} vs float64 numpy {w_np:.7g} (rel {rel_w:.3g}, tol 1e-3), "
+          f"feature distance rel {rel_d:.3g} (tol 1e-5); SVD of 409x2048 {svd_ms:.2f} ms, the "
+          f"whole PCA-Wasserstein {pw_ms:.2f} ms ({CARD})")
+
+    # the suite through the command line
+    args = EVAL_ARGS + ["--out", str(out_dir)]
+    phase("eval", "python -m strainer_gan_tpu_torch.cli " + " ".join(args))
+    n_su, n_fid = len(SU.calls), len(FID.calls)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tr, results = cli.run(args)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    staging(tr, "eval")
+    ev = results.get("eval", {})
+    check(set(ev) == set(EVAL_KEYS) and all(np.isfinite(ev[k]) for k in EVAL_KEYS),
+          f"--eval gave {ev}")
+    with open(out_dir / "metrics.json") as f:
+        check(json.load(f).get("eval") == ev, "metrics.json does not hold the eval results")
+    su, fids = SU.calls[n_su:], FID.calls[n_fid:]
+    check(len(su) == 1 and len(fids) == 2, f"{len(su)} suite calls, {len(fids)} FIDs")
+    phase("eval", f"{tr.dataset.n} images, 1 epoch, then the suite on 500 samples: "
+          + ", ".join(f"{k} {ev[k]:.6g}" for k in EVAL_KEYS)
+          + f"; ResNet50 feature passes {su[0]['features_s']:.3f} s on {su[0]['n']} images, "
+          f"the distances (two SVDs) {su[0]['distances_s']:.3f} s; FIDs: "
+          + "; ".join(f"activations {c['activations_s']:.3f} s, sqrtm {c['distance_s']:.3f} s "
+                      f"({c['branch']}, {c['n']} images)" for c in fids)
+          + f"; whole CLI run {total:.2f} s ({CARD}); kernels {json.dumps(launches)}; "
+          f"{graphs(tr, 'eval')}")
+
+
+DP_CHILD = "--dp-child"
+
+
+def dp_config(tmp: Path) -> list:
+    """The dp phase's runs: ``batch_mask`` gated from epoch 1 for 3 epochs
+    (the chunked phase's configuration, through a config JSON), and
+    ``zscore_loss`` as its phase runs it."""
+    from strainer_gan_tpu_torch import get_preset
+
+    cfg = get_preset("batch_mask")
+    cfg = cfg.replace(strain=dataclasses.replace(cfg.strain, mask_start_epoch=1))
+    path = tmp / "batch_mask_gate1.json"
+    if not path.exists():  # written once: the child reads it while the parent runs
+        path.write_text(cfg.to_json())
+    return [("batch_mask", ["--config", str(path), "--epochs", "3", "--max-synth", "4096"]),
+            ("zscore_loss", ZSCORE_LOSS_ARGS)]
+
+
+def run_snapshot(torch, tr, text: str, launches: dict) -> dict:
+    """What the dp phase compares of a run, on the host."""
+    out = dict(text=logger_text(text), G=tr.logger.G_losses, D=tr.logger.D_losses,
+               history=tr.epoch_loss_history, masks=tr.mask_history, launches=launches,
+               results=[{k: r[k] for k in ("steps", "active", "filtered_contam",
+                                           "total_contam")} for r in tr.epoch_results],
+               last=[{k: v.cpu() for k, v in r["last"].items()} for r in tr.epoch_results],
+               grids=tr.img_list, graphs=dict(tr.graph_stats))
+    for name in ("gen", "disc", "opt_g", "opt_d"):
+        sd = getattr(tr, name).state_dict()
+        if name.startswith("opt"):
+            sd = {f"{i}.{k}": v for i, st in sd["state"].items() for k, v in st.items()}
+        out.update({f"{name}.{k}": torch.as_tensor(v).cpu() for k, v in sd.items()})
+    return out
+
+
+def masked_replay_ms(torch, tr) -> float:
+    """ms/step of the Trainer's masked chunk replayed on seeded indices and
+    noise (4 chunks after one, synchronised)."""
+    cfg, chunk = tr.cfg, tr.cfg.train.steps_per_dispatch
+    key = (chunk, True, not tr.engine.d_bn_eval, True, cfg.model.compute_dtype)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    idx = torch.randint(0, tr.dataset.n, (chunk, cfg.data.batch_size), generator=g,
+                        device="cuda")
+    z = torch.randn((chunk, cfg.data.batch_size, cfg.model.nz), generator=g, device="cuda")
+    return replay_ms(torch, tr._executors[key], idx, z, cfg.train.lr_d)
+
+
+def dp_child(out_dir: str) -> int:
+    """The dp phase's child: under the launcher's environment of one rank,
+    ``--dp 1`` joins an NCCL group on the card, and each run goes the rank
+    path; saves what the parent compares."""
+    t0 = time.perf_counter()
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(HERE))
+    from strainer_gan_tpu_torch import cli, kernels
+    from strainer_gan_tpu_torch.parallel import multihost as MH
+
+    counts = {"all_reduce": 0, "all_gather_into_tensor": 0, "broadcast": 0}
+    for name in counts:  # collectives issued eagerly or recorded into a graph
+        fn = getattr(dist, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            counts[_name] += 1
+            return _fn(*a, **kw)
+
+        setattr(dist, name, counted)
+    out, trainers = {}, {}
+    try:
+        for name, args in dp_config(Path(out_dir)):
+            kernels.reset_launch_counts()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                trainers[name], _ = cli.run(args + ["--dp", "1"])
+            torch.cuda.synchronize()
+            check(MH.grouped() and dist.get_backend() == "nccl" and MH.world() == 1,
+                  "the dp child is not in an NCCL group of one rank")
+            out[name] = run_snapshot(torch, trainers[name], buf.getvalue(),
+                                     kernels.launch_counts())
+            out[name]["collectives"] = dict(counts)
+        # timed alone: the parent says go once its own phases have stopped
+        out["ready_s"] = time.perf_counter() - t0
+        (Path(out_dir) / "ready").write_text("")
+        deadline = time.perf_counter() + DP_WAIT_S
+        while not (Path(out_dir) / "go").exists():
+            check(time.perf_counter() < deadline, "the dp child was never told to go")
+            time.sleep(0.05)
+        out["batch_mask"]["masked_ms"] = masked_replay_ms(torch, trainers["batch_mask"])
+        torch.save(out, Path(out_dir) / "child.pt")
+    finally:
+        MH.shutdown()
+    return 0
+
+
+def dp_start(tmp: Path):
+    """Start the dp phase's child (a launcher's environment of one rank) in
+    the background, its output to files in ``tmp``; returns it and its
+    start time."""
+    import os
+    import socket
+
+    dp_config(tmp)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    with open(tmp / "child.out", "w") as out, open(tmp / "child.err", "w") as err:
+        proc = subprocess.Popen([sys.executable, str(HERE / "chip_smoke.py"), DP_CHILD,
+                                 str(tmp)], env=env, stdout=out, stderr=err)
+    return proc, time.perf_counter()
+
+
+DP_WAIT_S = 600  # the longest either side of the dp phase waits for the other
+
+
+def dp_failure(tmp: Path, rc) -> str:
+    return (f"the dp child failed ({rc}): {(tmp / 'child.out').read_text()[-1500:]} "
+            f"{(tmp / 'child.err').read_text()[-3000:]}")
+
+
+def dp_wait_ready(child_proc, tmp: Path) -> None:
+    """Wait until the dp child has trained both runs and waits for its go,
+    so that it is idle while the next phases time the card."""
+    proc, _ = child_proc
+    deadline = time.perf_counter() + DP_WAIT_S
+    while not (tmp / "ready").exists():
+        rc = proc.poll()
+        check(rc is None, dp_failure(tmp, rc))
+        check(time.perf_counter() < deadline, "the dp child was not ready in time")
+        time.sleep(0.05)
+
+
+def dp_phase(torch, np, child_proc, tmp: Path, zl, zl_text: str, bm_run):
+    """The rank path under an NCCL group of one rank (``dp_start``'s child,
+    which trained beside the loss-space to zscore_loss phases and then
+    waited) against the same runs with no group, bit for bit: ``zl`` and
+    ``zl_text`` are the zscore_loss phase's Trainer and output, ``bm_run``
+    the chunked phase's ``batch_mask`` snapshot and Trainer.  The child
+    times its replayed masked step on its go, alone on the card."""
+    proc, t0 = child_proc
+    snapshot, bm = bm_run
+    plain = {"batch_mask": snapshot, "zscore_loss": run_snapshot(torch, zl, zl_text, {})}
+    torch.cuda.synchronize()
+    (tmp / "go").write_text("")
+    try:
+        rc = proc.wait(timeout=DP_WAIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    child_s = time.perf_counter() - t0
+    check(rc == 0, dp_failure(tmp, rc))
+    child = torch.load(tmp / "child.pt", weights_only=False)
+    plain_ms = masked_replay_ms(torch, bm)  # the child has ended: the card is this one's
+    for name, want in plain.items():
+        got = child[name]
+        diffs = [k for k, v in want.items() if isinstance(v, torch.Tensor)
+                 and not torch.equal(got[k], v)]
+        check(not diffs, f"dp {name}: {len(diffs)} tensors differ, first {diffs[:4]}")
+        for k in ("text", "G", "D", "results"):
+            check(got[k] == want[k] and (k != "text" or want[k]), f"dp {name}: {k} differs")
+        for k in ("history", "masks", "grids"):
+            check(len(got[k]) == len(want[k]) and all(
+                np.array_equal(a, b) for a, b in zip(got[k], want[k])), f"dp {name}: {k} differ")
+        check(all(torch.equal(a[k], b[k]) for a, b in zip(got["last"], want["last"]) for k in a),
+              f"dp {name}: an epoch's last metrics differ")
+        check(got["graphs"]["replays"] > 0, f"dp {name}: no chunk replayed")
+    gz = child["zscore_loss"]["launches"]
+    check(gz["bce_scores"] >= 1 and gz["zscore_column_stats"] >= 1
+          and gz["zscore_row_max"] >= 1, f"dp zscore_loss launches {gz}")
+    bmc = child["batch_mask"]
+    phase("dp", f"child (RANK=0 WORLD_SIZE=1, NCCL; {child['ready_s']:.1f} s to its two runs' "
+          f"end beside phases 6-9, {child_s:.1f} s in all): batch_mask gated from "
+          f"epoch 1 for 3 epochs ({sum(r['steps'] for r in bmc['results'])} steps, "
+          f"{bmc['graphs']['replays']} chunks replayed) and zscore_loss epochs 0-3 "
+          f"({child['zscore_loss']['graphs']['replays']} replayed) on the rank path: bit-equal "
+          f"to the same runs with no group (parameters, BatchNorm buffers, Adam state, losses, "
+          f"per-sample history, masks, last metrics, grids, console text); collectives issued "
+          f"or recorded: batch_mask {json.dumps(bmc['collectives'])}, both runs "
+          f"{json.dumps(child['zscore_loss']['collectives'])}; zscore_loss launches on the "
+          f"rank path: K1 {gz['bce_scores']}, K2a {gz['zscore_column_stats']}, K2b "
+          f"{gz['zscore_row_max']}")
+    phase("dp", f"the replayed masked step, batch 128, synchronised ({CARD}): "
+          f"{bmc['masked_ms']:.3f} ms with the NCCL collectives (world size 1), "
+          f"{plain_ms:.3f} ms without a group")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -2326,14 +2679,25 @@ def main() -> int:
     dbscan_launches, staged = zscore_dbscan_phase(torch, np)
     k3["launches"] = dbscan_launches["neighbor_counts"]
     results.append(k3)
-    loss_space_phases(torch, np, staged)
-    del staged
-    zscore_short_phases(torch, np)
-    basic_phase(torch, np)
-    zscore_loss_phase(torch, np)
-    bm = batch_mask_phase(torch, np)
-    chunked_batch_mask(torch, np, bm)
-    del bm
+    with tempfile.TemporaryDirectory() as tmp:
+        # the dp child trains beside the next phases, then waits for its go
+        child = dp_start(Path(tmp))
+        try:
+            loss_space_phases(torch, np, staged)
+            del staged
+            zscore_short_phases(torch, np)
+            basic_phase(torch, np)
+            zl, zl_text = zscore_loss_phase(torch, np)
+            dp_wait_ready(child, Path(tmp))
+            bm = batch_mask_phase(torch, np)
+            bm_run = chunked_batch_mask(torch, np, bm)
+            del bm
+            dp_phase(torch, np, child, Path(tmp), zl, zl_text, bm_run)
+        finally:
+            if child[0].poll() is None:
+                child[0].kill()
+                child[0].wait()
+    del zl, bm_run
     in_batch_recycle_phase(torch, np)
     with tempfile.TemporaryDirectory() as tmp:
         fake_pool_phase(torch, np, Path(tmp))
@@ -2342,6 +2706,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         mnist_full_phase(torch, np, Path(tmp))
     fid_phase(torch, np)
+    with tempfile.TemporaryDirectory() as tmp:
+        eval_phase(torch, np, Path(tmp))
     phase("staging", "host seconds a mixture, native: " + ", ".join(
         f"{name} {s:.2f} ({n})" for name, n, s in STAGING)
         + f"; {sum(s for _, _, s in STAGING):.2f} s in all")
@@ -2357,4 +2723,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [DP_CHILD]:
+        sys.exit(dp_child(sys.argv[2]))
     sys.exit(main())

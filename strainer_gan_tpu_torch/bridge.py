@@ -13,8 +13,8 @@ The MLP's ``DenseTorch_k`` kernels are (in, out), torch's Linear weights
 functions serve every model of the port: the DCGAN, the autoencoder and
 the MLP.
 
-The backbones: ``resnet18_state_dict_from_flax`` (3 or 1 input channels)
-and ``inception_state_dict_from_flax`` turn a flax trunk's variables into
+The backbones: ``resnet18_state_dict_from_flax`` (3 or 1 input channels),
+``resnet50_state_dict_from_flax`` and ``inception_state_dict_from_flax`` turn a flax trunk's variables into
 torchvision-named state_dicts, along the JAX package's name pairs
 (`strainer_gan_tpu/models/resnet.py:144-173`,
 `strainer_gan_tpu/models/inception.py:194-271`).
@@ -160,30 +160,41 @@ def load_adam_from_flax(module: torch.nn.Module, opt: torch.optim.Optimizer, mu,
     opt.load_state_dict(sd)
 
 
-def resnet18_name_map() -> Iterator[Tuple[Tuple[str, ...], str, str]]:
+def resnet_name_map(block: str = "basic", stages=(2, 2, 2, 2)
+                    ) -> Iterator[Tuple[Tuple[str, ...], str, str]]:
     """(flax ConvBN path, torchvision conv name, torchvision bn name), as
-    `strainer_gan_tpu/models/resnet.py:144-173` names the trunk."""
+    `strainer_gan_tpu/models/resnet.py:144-173` names the trunk: blocks
+    ``BasicBlock_k`` (two ConvBNs) or ``Bottleneck_k`` (three) counted
+    across stages, the downsample unit last."""
+    scope_name, n_main, expansion = (("BasicBlock", 2, 1) if block == "basic"
+                                     else ("Bottleneck", 3, 4))
     yield ("_ConvBN_0",), "conv1", "bn1"
     k = 0
     in_ch = 64
-    for stage in range(4):
+    for stage, n_blocks in enumerate(stages):
         width = 64 * 2 ** stage
-        for i in range(2):
+        for i in range(n_blocks):
             stride = 2 if (stage > 0 and i == 0) else 1
-            prefix, scope = f"layer{stage + 1}.{i}", f"BasicBlock_{k}"
-            for c in range(2):
+            prefix, scope = f"layer{stage + 1}.{i}", f"{scope_name}_{k}"
+            for c in range(n_main):
                 yield (scope, f"_ConvBN_{c}"), f"{prefix}.conv{c + 1}", f"{prefix}.bn{c + 1}"
-            if i == 0 and (stride != 1 or in_ch != width):
-                yield (scope, "_ConvBN_2"), f"{prefix}.downsample.0", f"{prefix}.downsample.1"
-            in_ch = width
+            if i == 0 and (stride != 1 or in_ch != width * expansion):
+                yield ((scope, f"_ConvBN_{n_main}"), f"{prefix}.downsample.0",
+                       f"{prefix}.downsample.1")
+            in_ch = width * expansion
             k += 1
 
 
-def resnet18_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
-    """torchvision-named state_dict of a flax ResNet18 trunk's variables."""
+def resnet18_name_map() -> Iterator[Tuple[Tuple[str, ...], str, str]]:
+    return resnet_name_map("basic", (2, 2, 2, 2))
+
+
+def resnet_state_dict_from_flax(variables, block: str = "basic",
+                                stages=(2, 2, 2, 2)) -> Dict[str, torch.Tensor]:
+    """torchvision-named state_dict of a flax ResNet trunk's variables."""
     params, stats = variables["params"], variables["batch_stats"]
     sd = {}
-    for path, conv, bn in resnet18_name_map():
+    for path, conv, bn in resnet_name_map(block, stages):
         p, s = _get(params, path), _get(stats, path)
         sd[conv + ".weight"] = _to_torch(p["Conv2dTorch_0"]["kernel"], "conv")
         sd[bn + ".weight"] = p["MaskedBatchNorm_0"]["scale"]
@@ -191,6 +202,14 @@ def resnet18_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
         sd[bn + ".running_mean"] = s["MaskedBatchNorm_0"]["mean"]
         sd[bn + ".running_var"] = s["MaskedBatchNorm_0"]["var"]
     return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in sd.items()}
+
+
+def resnet18_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+    return resnet_state_dict_from_flax(variables, "basic", (2, 2, 2, 2))
+
+
+def resnet50_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+    return resnet_state_dict_from_flax(variables, "bottleneck", (3, 4, 6, 3))
 
 
 # the flax scopes of InceptionV3Features' BasicConv2d units, block by block

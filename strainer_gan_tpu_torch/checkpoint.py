@@ -21,10 +21,16 @@ from typing import Optional
 
 import torch
 
+from .parallel.multihost import is_primary
+
 
 def save_checkpoint(path: str, trainer, epoch: int) -> str:
-    """Save the trainer's state at an epoch boundary; returns the directory."""
+    """Save the trainer's state at an epoch boundary; returns the directory.
+    Under a process group only rank 0 writes (every rank holds the same
+    state)."""
     path = os.path.abspath(path)
+    if not is_primary():
+        return path
     eng = trainer.engine
     payload = dict(
         gen=trainer.gen.state_dict(), disc=trainer.disc.state_dict(),

@@ -3,18 +3,35 @@
 
     python -m strainer_gan_tpu_torch.cli --preset final --epochs 4 --out runs/x
     python -m strainer_gan_tpu_torch.cli --preset basic --device cpu --max-synth 64
+    python -m strainer_gan_tpu_torch.cli --preset strainer_gan --eval --out runs/y
+    python -m strainer_gan_tpu_torch.cli --preset batch_mask --dp 2 --device cpu
     python -m strainer_gan_tpu_torch.cli --list
 
 The JAX CLI's flags, outputs (``metrics.json``, ``samples.png``,
 ``samples_epochN.png``, ``ckpt/``, the plots) and printed JSON, plus
-``--device`` (the card by default).  ``--dp`` and ``--eval`` are not ported
-yet: they exit with code 2.  ``run(argv)`` is the body, returning the
-Trainer and the results; ``main`` wraps it.
+``--device`` (the card by default).  ``run(argv)`` is the body, returning
+the Trainer and the results; ``main`` wraps it.
+
+``--eval`` runs the eval suite after training (``eval/suite.py``; a
+preset with no metric on gets all of them, ``force_eval_suite``) on
+``--eval-samples`` samples and puts its values under ``"eval"``.
+
+``--dp N`` trains on N ranks (``parallel/``), one global step over them.
+Under a launcher (``torchrun``'s ``RANK``/``WORLD_SIZE``, or the JAX
+names ``COORDINATOR_ADDRESS``/``NUM_PROCESSES``/``PROCESS_ID``) N must be
+its world size; without one the CLI spawns N local ranks: cards
+``0..N-1`` with NCCL, or N gloo processes with ``--device cpu``.  ``-1``
+means every visible card (the CPU's cores with ``--device cpu``); one
+rank without a launcher is no group, as the JAX package's ``dp=1`` is no
+mesh.  More ranks than visible cards (or cores) is refused.  Only rank 0
+prints, writes the checkpoints, PNGs and ``metrics.json``, and runs the
+eval suite; every rank restores.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import io
 import json
 import os
 import sys
@@ -41,17 +58,30 @@ def parser() -> argparse.ArgumentParser:
                     help="save a sample grid PNG every N epochs "
                          "(the reference's GAN_results/ PNGs)")
     ap.add_argument("--resume", default=None, help="checkpoint dir to resume from")
-    ap.add_argument("--eval", action="store_true", help="not ported yet (exit code 2)")
+    ap.add_argument("--eval", action="store_true", help="run the eval suite at the end")
     ap.add_argument("--parity-check", action="store_true",
                     help="report filter-mask agreement vs the numpy oracle")
     ap.add_argument("--f32", action="store_true",
                     help="parity mode: full float32 compute")
-    ap.add_argument("--dp", type=int, default=None, help="not ported yet (exit code 2)")
+    ap.add_argument("--dp", type=int, default=None,
+                    help="data-parallel ranks (-1 = all visible cards)")
+    ap.add_argument("--eval-samples", type=int, default=500)
     ap.add_argument("--describe", action="store_true",
                     help="print the model/memory breakdown and exit")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     return ap
+
+
+def force_eval_suite(cfg, n_samples: int):
+    """``--eval`` on a config whose ``EvalConfig`` has every metric off: all
+    of them on, at ``n_samples`` (`strainer_gan_tpu/cli.py:20-38`); a
+    config with any metric on is kept as its reference script defines it."""
+    ev = cfg.eval
+    if ev.fid or ev.feature_distance or ev.wasserstein:
+        return cfg
+    return cfg.replace(eval=dataclasses.replace(
+        ev, fid=True, feature_distance=True, wasserstein=True, fid_n_samples=n_samples))
 
 
 def load_config(args):
@@ -73,7 +103,70 @@ def load_config(args):
         cfg = cfg.replace(data=dataclasses.replace(cfg.data, batch_size=args.batch_size))
     if args.f32:
         cfg = cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype="float32"))
+    if args.dp is not None:
+        cfg = cfg.replace(parallel=dataclasses.replace(cfg.parallel, dp=args.dp))
+    if args.eval:
+        cfg = force_eval_suite(cfg, args.eval_samples)
     return cfg
+
+
+def ranks_asked(args) -> int:
+    """The rank count ``--dp`` asks for, checked against what is visible."""
+    import torch
+
+    cpu = args.device is not None and torch.device(args.device).type == "cpu"
+    visible = (os.cpu_count() or 1) if cpu else torch.cuda.device_count()
+    what = "CPU cores" if cpu else "visible cards"
+    if args.dp == 0 or args.dp < -1:
+        raise UsageError(f"--dp {args.dp}: give a rank count, or -1 for all {what}")
+    n = visible if args.dp == -1 else args.dp
+    if n > visible or n < 1:
+        raise UsageError(f"--dp {args.dp}: more ranks than the {visible} {what}")
+    return n
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_entry(rank: int, argv, world: int, port: int, result_path: str,
+                threads: int) -> None:
+    """A spawned rank: the launcher's environment, then the run; rank 0
+    leaves the results in ``result_path``."""
+    import torch
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    torch.set_num_threads(threads)
+    from .parallel.multihost import shutdown
+
+    try:
+        _, results = run(argv)
+    finally:
+        shutdown()
+    if rank == 0:
+        with open(result_path, "w") as f:
+            json.dump(results, f)
+
+
+def spawn(argv, world: int) -> dict:
+    """Run ``argv`` on ``world`` local ranks; returns rank 0's results."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    threads = max(1, torch.get_num_threads() // world)  # the ranks share this process's cores
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "results.json")
+        mp.spawn(_rank_entry, args=(list(argv), world, _free_port(), path, threads),
+                 nprocs=world, join=True)
+        with open(path) as f:
+            return json.load(f)
 
 
 def image_rows(imgs, cfg):
@@ -96,10 +189,28 @@ def run(argv=None, stdout=None) -> Tuple[Optional[object], dict]:
         for name, cfg in sorted(PRESETS.items()):
             print(f"{name:24s} arch={cfg.model.arch:8s} strain={cfg.strain.method}", file=out)
         return None, {}
-    for flag, given in (("--dp", args.dp is not None), ("--eval", args.eval)):
-        if given:
-            raise UsageError(f"{flag} is not ported yet")
     cfg = load_config(args)
+    if args.eval:
+        from .eval.suite import check_config
+
+        try:
+            check_config(cfg)  # before training, not after it
+        except ValueError as e:
+            raise UsageError(f"--eval: {e}") from None
+    from .parallel import multihost as MH
+
+    if args.dp is not None:
+        n = ranks_asked(args)
+        if MH.launched():
+            MH.initialize(args.device)
+            if MH.world() != n:
+                raise UsageError(f"--dp {args.dp} under a launcher of {MH.world()} ranks")
+        elif n > 1:
+            return None, spawn(argv if argv is not None else sys.argv[1:], n)
+    elif MH.launched():
+        MH.initialize(args.device)
+    if not MH.is_primary():
+        out = io.StringIO()  # only rank 0 prints
 
     from .obs.images import save_image_grid
     from .train.loop import Trainer
@@ -145,6 +256,13 @@ def run(argv=None, stdout=None) -> Tuple[Optional[object], dict]:
         from .parity.agreement import agreement_report
 
         results["parity"] = agreement_report(trainer, epoch=cfg.train.epochs - 1)
+    if not MH.is_primary():  # rank 0 evaluates and writes
+        return trainer, results
+    if args.eval:
+        from .eval.suite import evaluate_run
+
+        results["eval"] = evaluate_run(cfg, trainer.gen, trainer.dataset,
+                                       n_samples=args.eval_samples)
     if args.out:
         import numpy as np
 

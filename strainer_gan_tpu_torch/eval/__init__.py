@@ -1,1 +1,2 @@
-"""Evaluation: FID (counterpart of `strainer_gan_tpu/eval/`)."""
+"""Evaluation: FID and the ResNet50 feature distances (counterpart of
+`strainer_gan_tpu/eval/`)."""

@@ -7,7 +7,12 @@ scripts use them (`#%basic.py:106-182`).  ``MaskedBatchNorm`` is
 for the running update; statistics over every axis but the channel's)
 extended with per-sample weights, which torch's BatchNorms do not take:
 zero-weight lanes (the padding of a partial tail batch) influence neither
-the batch statistics nor the running ones (`layers.py:147-220`).
+the batch statistics nor the running ones (`layers.py:147-220`).  Inside
+a sharded train step (``parallel.mesh.batch_sharded``) the statistics are
+the global batch's: the weight sum, the weighted sum and the centred square
+sum are summed over ranks (two passes, as on one rank), and without weights
+the ranks' means and centred variances are merged; with no process group
+the arithmetic is exactly the single-rank one.
 
 The MLP's layers: ``Linear`` is ``nn.Linear`` with the JAX package's
 ``DenseTorch`` initialisation drawn from the caller's generator
@@ -20,6 +25,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from ..parallel import mesh as M
 
 
 class MaskedBatchNorm(nn.Module):
@@ -42,16 +49,29 @@ class MaskedBatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         else:
             xf = x.to(torch.float32)
+            # under a sharded step the statistics are the global batch's
+            # (parallel/mesh.py); R is the identity otherwise
+            R = M.all_reduce_sum if M.sharded() else (lambda t: t)
             if sample_weights is None:
                 n = float(x.numel() // x.shape[1])
-                denom = max(n - 1.0, 1.0)
                 var, mean = torch.var_mean(xf, dim=dims, unbiased=False)
+                if M.sharded():
+                    # every rank holds n lanes' values: merge the ranks' means
+                    # and centred variances (exact at world size 1: f = 1)
+                    f = 1.0 / M.world()
+                    n *= M.world()
+                    mean_l = mean
+                    mean = R(mean_l * f)
+                    var = R((var + (mean_l - mean) ** 2) * f)
+                denom = max(n - 1.0, 1.0)
             else:
                 w = sample_weights.to(torch.float32).view((-1,) + (1,) * (x.dim() - 1))
-                n = torch.clamp(w.sum() * (x.numel() // (x.shape[0] * x.shape[1])), min=1.0)
+                # a rank whose lanes are all padding adds 0 to each sum
+                n = torch.clamp(R(w.sum()) * (x.numel() // (x.shape[0] * x.shape[1])),
+                                min=1.0)
                 denom = torch.clamp(n - 1.0, min=1.0)
-                mean = (xf * w).sum(dim=dims) / n
-                var = (w * (xf - mean.view(per_channel)) ** 2).sum(dim=dims) / n
+                mean = R((xf * w).sum(dim=dims)) / n
+                var = R((w * (xf - mean.view(per_channel)) ** 2).sum(dim=dims)) / n
             with torch.no_grad():
                 m = self.momentum
                 unbiased = var.detach() * n / denom

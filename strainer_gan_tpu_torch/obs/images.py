@@ -14,6 +14,8 @@ import zlib
 
 import numpy as np
 
+from ..parallel.multihost import is_primary
+
 
 def make_grid(images: np.ndarray, nrow: int = 8, padding: int = 2,
               normalize: bool = True) -> np.ndarray:
@@ -57,6 +59,9 @@ def encode_png(pixels: np.ndarray) -> bytes:
 
 def save_image_grid(images: np.ndarray, path: str, nrow: int = 8,
                     padding: int = 2) -> None:
+    """Write the grid as a PNG (under a process group, rank 0 only)."""
+    if not is_primary():
+        return
     grid = make_grid(images, nrow=nrow, padding=padding)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:

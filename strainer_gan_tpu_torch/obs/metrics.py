@@ -23,7 +23,19 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from ..parallel.multihost import is_primary
+
 PRINTED = ("errD", "errG", "D_x", "D_G_z1", "D_G_z2")
+
+
+class Silent:
+    """The console of a rank other than 0: writes nothing."""
+
+    def write(self, text: str) -> int:
+        return len(text)
+
+    def flush(self) -> None:
+        pass
 
 
 class MetricsLogger:
@@ -33,7 +45,8 @@ class MetricsLogger:
     def __init__(self, log_every: int = 50, stream=None, style: str = "dcgan"):
         self.log_every = log_every
         self.style = style
-        self.stream = stream or sys.stdout
+        # under a process group only rank 0 prints
+        self.stream = stream or (sys.stdout if is_primary() else Silent())
         self._g_parts: List[torch.Tensor] = []  # a step's 0-d loss or a chunk's (n,)
         self._d_parts: List[torch.Tensor] = []
         self._timings: List[Tuple[float, int]] = []  # (host seconds, steps) per call

@@ -17,6 +17,8 @@ from typing import Optional, Union
 
 import torch
 
+from ..parallel import mesh as M
+
 _CLAMP = 100.0
 _TINY = torch.finfo(torch.float32).tiny  # smallest normal float32
 
@@ -65,11 +67,21 @@ def bce_from_logits(logits: torch.Tensor, target: Target) -> torch.Tensor:
 
 def weighted_mean(per_sample: torch.Tensor,
                   weights: Optional[torch.Tensor]) -> torch.Tensor:
-    """Mean over weighted lanes == torch's mean over a variable-size batch."""
+    """Mean over weighted lanes == torch's mean over a variable-size batch.
+
+    Inside a sharded train step (``parallel.mesh.batch_sharded``) this is
+    the rank's share of the global batch's mean: its lanes' weighted sum
+    over the global weight sum, or its lanes' mean over the world size
+    without weights (every rank holds as many lanes).  The ranks' shares
+    sum to the global mean, and their gradients to its gradient."""
     if weights is None:
-        return per_sample.mean()
+        m = per_sample.mean()
+        return m / M.world() if M.sharded() else m
     w = weights.to(per_sample.dtype)
-    return (per_sample * w).sum() / torch.clamp_min(w.sum(), 1.0)
+    wsum = w.sum()
+    if M.sharded():
+        wsum = M.all_reduce_(wsum.detach().clone())
+    return (per_sample * w).sum() / torch.clamp_min(wsum, 1.0)
 
 
 def d_loss(real_per_sample: torch.Tensor, fake_per_sample: torch.Tensor,

@@ -1,0 +1,92 @@
+"""Process-group bootstrap for data parallelism (counterpart of
+`strainer_gan_tpu/parallel/multihost.py`).
+
+``initialize`` joins the ``torch.distributed`` process group a launcher
+describes: ``torchrun``'s ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` /
+``MASTER_PORT`` (and ``LOCAL_RANK``), or the JAX package's names
+``COORDINATOR_ADDRESS`` (``host:port``) / ``NUM_PROCESSES`` /
+``PROCESS_ID``.  Without either it does nothing, and the run has no group.
+On the card each rank takes ``cuda:LOCAL_RANK`` and the group speaks NCCL;
+on the CPU (``device="cpu"``) it speaks gloo.  It is idempotent, as
+``jax.distributed.initialize``'s wrapper is.  Every collective of the group
+times out after ``timeout_s`` seconds, so a rank that never arrives fails
+the run instead of hanging it.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+DEFAULT_TIMEOUT_S = 300
+
+
+def _launcher_env() -> Optional[dict]:
+    """The launcher's description of this process, or None."""
+    e = os.environ
+    if "WORLD_SIZE" in e and "RANK" in e:
+        return dict(addr=e.get("MASTER_ADDR", "127.0.0.1"), port=e.get("MASTER_PORT", "29500"),
+                    world=int(e["WORLD_SIZE"]), rank=int(e["RANK"]),
+                    local=int(e.get("LOCAL_RANK", e["RANK"])))
+    if "COORDINATOR_ADDRESS" in e:
+        addr, _, port = e["COORDINATOR_ADDRESS"].rpartition(":")
+        rank = int(e.get("PROCESS_ID", 0))
+        return dict(addr=addr, port=port, world=int(e.get("NUM_PROCESSES", 1)), rank=rank,
+                    local=int(e.get("LOCAL_RANK", rank)))
+    return None
+
+
+def launched() -> bool:
+    """Whether a launcher described a process group to this process."""
+    return _launcher_env() is not None
+
+
+def initialize(device: Optional[str] = None, timeout_s: float = DEFAULT_TIMEOUT_S) -> bool:
+    """Join the launcher's process group (``device``: "cpu" for gloo, else
+    the card and NCCL); returns whether a group is initialised."""
+    if dist.is_initialized():
+        return True
+    env = _launcher_env()
+    if env is None:
+        return False
+    cpu = device is not None and torch.device(device).type == "cpu"
+    if not cpu:
+        torch.cuda.set_device(env["local"])
+    dist.init_process_group(
+        backend="gloo" if cpu else "nccl", init_method=f"tcp://{env['addr']}:{env['port']}",
+        world_size=env["world"], rank=env["rank"],
+        timeout=datetime.timedelta(seconds=timeout_s),
+        device_id=None if cpu else torch.device("cuda", env["local"]))
+    return True
+
+
+def grouped() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def world() -> int:
+    return dist.get_world_size() if grouped() else 1
+
+
+def rank() -> int:
+    return dist.get_rank() if grouped() else 0
+
+
+def is_primary() -> bool:
+    return rank() == 0
+
+
+def rank_device(device=None) -> torch.device:
+    """The rank's device: ``cuda:LOCAL_RANK`` under a card group, else
+    ``device`` as given (None is the card)."""
+    if grouped() and dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cuda" if device is None else device)
+
+
+def shutdown() -> None:
+    if grouped():
+        dist.destroy_process_group()

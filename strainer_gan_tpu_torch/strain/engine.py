@@ -27,6 +27,12 @@ The strain state is boolean masks over the full device-resident dataset;
 ``last_mask`` is the mask of the last strain event.  For
 ``batch_quantile_mask`` the Trainer records the last step's scores and
 keep mask here (``last_batch_*``) for the parity report.
+
+Under a process group (``parallel``) the D-loss passes are sharded by rows
+and gathered (``score.py``), so every rank holds the same losses and
+computes the same percentile, IQR and z-score masks; the decisions that
+fit something (the GMM of ``loss_gmm`` and ``loss_ensemble``, the
+autoencoder's training) are made on rank 0 and broadcast.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from ..data.pipeline import DeviceDataset, epoch_batch_indices, normalize_u8
 from ..device import f32_math
 from ..models.autoencoder import ConvAutoEncoder, init_ae_weights
 from ..ops import dbscan as DB
+from ..parallel import mesh as M
 from ..train.schedules import clean_ratio_at
 from . import score as SC
 from . import thresholds as TH
@@ -271,9 +278,10 @@ class StrainerEngine:
         if epoch < sc.start_epoch:
             return self.active
         if sc.method == "loss_gmm":
-            return self._set_active(*TH.gmm_mask(self._losses()))  # the full set (`:330-339`)
+            # the full set (`:330-339`)
+            return self._set_active(*self._by_primary(TH.gmm_mask, self._losses()))
         if sc.method == "loss_ensemble":
-            mask, thr = TH.ensemble_mask(self._losses())
+            mask, thr = self._by_primary(TH.ensemble_mask, self._losses())
             ratio = clean_ratio_at(epoch, sc.clean_ratio_schedule)
             return self._set_active(_truncate_in_order(mask, keep_count(mask, ratio)), thr)
         if sc.final_py_ratio_inversion:
@@ -282,6 +290,19 @@ class StrainerEngine:
         else:
             loss_ratio = sc.loss_ratio
         return self._set_active(*self._refine(loss_ratio))
+
+    def _by_primary(self, fn, losses: torch.Tensor):
+        """``fn(losses)``'s (mask, threshold) as rank 0 fits them, on every
+        rank; ``fn(losses)`` without a process group."""
+        if not M.grouped():
+            return fn(losses)
+
+        def fit():
+            mask, thr = fn(losses)
+            return mask, thr.to(torch.float32)
+
+        return M.from_primary(fit, torch.empty_like(losses, dtype=torch.bool),
+                              torch.empty((), dtype=torch.float32, device=losses.device))
 
     def on_epoch_end(self, epoch: int) -> torch.Tensor:
         if self.sc.reset_each_epoch:
@@ -308,9 +329,15 @@ class StrainerEngine:
         Adam(``ae_lr``), MSE, ``ae_train_epochs`` epochs over the active set,
         drop_last=False: the last batch is the partial tail, its pad lanes
         weighted 0.  float32 with TF32 off, as the scoring.  One host read
-        (the active count fixes the step count)."""
+        (the active count fixes the step count).  Under a process group
+        rank 0 trains it and broadcasts its weights."""
         t0 = time.perf_counter()
         ae = self.build_ae()
+        if not M.is_primary():
+            for t in ae.state_dict().values():
+                M.broadcast(t)
+            self.ae = ae
+            return
         opt = torch.optim.Adam(ae.parameters(), lr=self.sc.ae_lr)
         bs = self.cfg.data.batch_size
         dev = self.dataset.device
@@ -323,6 +350,8 @@ class StrainerEngine:
             for b in range(rows):
                 ae_train_step(ae, opt, self.dataset.gather(idx[b]),
                               tail_w if (tail and b == rows - 1) else ones)
+        for t in ae.state_dict().values():
+            M.broadcast(t)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         self.ae = ae

@@ -14,6 +14,12 @@ Precision: strain decisions carry float32 rounding.  ``score_d_losses``,
 ``fused_percentile_refine`` scores the bulk in bfloat16 and re-scores in
 float32 every sample near the percentile threshold, which gives the same
 mask as the float32 pass.
+
+Under a process group the D-loss passes are sharded by rows, as the JAX
+mesh shards them: each rank scores its block (and launches K1 on it), and
+the blocks are gathered, so every rank holds the same loss vector and
+decides the same mask.  The feature and autoencoder passes run whole on
+each rank.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from ..device import f32_math
 from ..kernels.bce import bce_scores
 from ..models.autoencoder import reconstruction_errors
 from ..ops import stats as S
+from ..parallel import mesh as M
 from . import thresholds as TH
 
 FEATURE_DIM = 512  # the ResNet18 trunk's width
@@ -69,6 +76,17 @@ def _d_losses(disc: torch.nn.Module, dataset: DeviceDataset, real_label: float,
               batch_size: int, subset: Optional[torch.Tensor],
               dtype: torch.dtype = torch.float32) -> torch.Tensor:
     n = dataset.n if subset is None else subset.shape[0]
+    if M.grouped():
+        # sharded by rows: each rank scores its block of ceil(n / world)
+        # rows (K1 on the block), then the blocks are gathered in order
+        m = -(-n // M.world())
+        lo = min(M.rank() * m, n)
+        hi = min(lo + m, n)
+        rows = (torch.arange(lo, hi, device=dataset.device) if subset is None
+                else subset[lo:hi])
+        block = torch.zeros((m,), dtype=torch.float32, device=dataset.device)
+        _batched(_d_logits_fn(disc, dtype), dataset, block[:hi - lo], batch_size, rows, dtype)
+        return M.all_gather(bce_scores(block, real_label, out=block))[:n]
     logits = torch.empty((n,), dtype=torch.float32, device=dataset.device)
     _batched(_d_logits_fn(disc, dtype), dataset, logits, batch_size, subset, dtype)
     return bce_scores(logits, real_label, out=logits)

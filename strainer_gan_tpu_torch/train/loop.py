@@ -57,6 +57,18 @@ port the JAX package's draws.
 
 ``kernel_launches`` holds how often each CUDA kernel wrapper launched
 during ``run()``.
+
+Data parallelism (`loop.py:160-245, 440-460`): whenever a
+``torch.distributed`` process group is initialised (``parallel``; the
+CLI's ``--dp``), whatever its size, the Trainer takes the rank path: it
+trains on the rank's card (``cuda:LOCAL_RANK``, or the CPU with gloo),
+holds the whole dataset there as the single-host JAX mesh replicates it,
+draws every step's indices, noise, pool rows and keep masks for the
+global batch from the same generators on every rank, and hands the step
+the rank's lanes (``steps.rank_inputs``; inside a chunk each rank gathers
+its own lanes).  The batch must divide by the world size.  Only rank 0
+prints and runs the periodic FID.  At world size 1 the rank path is
+bit-equal to the run with no group.
 """
 from __future__ import annotations
 
@@ -74,12 +86,15 @@ from ..kernels import launch_counts
 from ..models import build_models
 from ..models.features import build_feature_fn
 from ..obs.metrics import MetricsLogger
+from ..parallel import mesh as M
+from ..parallel.multihost import rank_device
 from ..strain.engine import StrainerEngine
 from ..strain.pool import fake_pool_rows
 from ..utils.trees import finite_check
 from .schedules import lr_at
 from .state import make_optimizers
-from .steps import (DROP_FORWARDS, ChunkedStep, autocast, pool_indices, step_config_from,
+from .steps import (ChunkedStep, autocast, drop_shape, pool_indices, rank_inputs,
+                    step_config_from,
                     train_step)
 
 BAND_COOLOFF_EVENTS = 5  # f32 strain events after a band overflow (`loop.py:302-308`)
@@ -92,7 +107,8 @@ class Trainer:
                  dataset: Optional[DeviceDataset] = None):
         """``dataset``: an already staged dataset to train on (on ``device``);
         by default the config's mixture is built and staged."""
-        self.device = resolve_device(device)
+        # under a process group: the rank's card (or the CPU with gloo)
+        self.device = resolve_device(rank_device(device))
         self.cfg = cfg
         # host seconds of building the mixture (synthetic generators, resize
         # and gather through the host-staging library), when this Trainer
@@ -109,6 +125,9 @@ class Trainer:
             bs = min(max(dataset.n // cfg.data.auto_batch_divisor, 16), 64)
             cfg = cfg.replace(data=dataclasses.replace(cfg.data, batch_size=bs))
             self.cfg = cfg
+        if cfg.data.batch_size % M.world():
+            raise ValueError(f"batch_size {cfg.data.batch_size} not divisible by "
+                             f"dp={M.world()}")
         gen, disc = build_models(cfg.model, seed=cfg.train.seed)
         self.gen, self.disc = gen.to(self.device), disc.to(self.device)
         self.opt_g, self.opt_d = make_optimizers(cfg, self.gen, self.disc)
@@ -227,13 +246,14 @@ class Trainer:
                            device=self.device)
 
     def step_dropout(self, epoch: int, i: int) -> List[torch.Tensor]:
-        """D's keep masks of step ``i`` of ``epoch``: (3, batch_size, width)
+        """D's keep masks of step ``i`` of ``epoch``: ``steps.drop_shape``
         bool per hidden width, each element kept with probability 1 - p
         (``jax.random.bernoulli``'s ``uniform < p`` form); [] without
         dropout."""
         keep = 1.0 - self.scfg.dropout
-        return [torch.rand((DROP_FORWARDS, self.cfg.data.batch_size, w), generator=self.drop_rng,
-                           device=self.device) < keep for w in self.scfg.drop_widths]
+        return [torch.rand(drop_shape(self.scfg, self.cfg.data.batch_size, w),
+                           generator=self.drop_rng, device=self.device) < keep
+                for w in self.scfg.drop_widths]
 
     def pool_order(self, n: int) -> torch.Tensor:
         """A random permutation of ``n`` (the pool's build draws one over the
@@ -294,16 +314,17 @@ class Trainer:
 
         def run_one(i):
             nonlocal metrics, lanes
-            ids = idx[i]
+            # the global step's draws; the rank takes its lanes
+            ids, z, rows, drop = rank_inputs(
+                self.scfg, idx[i], self.step_noise(epoch, i),
+                self.step_pool_rows(epoch, i) if pooled else None, self.step_dropout(epoch, i))
             x = normalize_u8(self.dataset.gather(ids), torch.float32)
-            z = self.step_noise(epoch, i)
             lanes = tail if (tail and i == steps - 1) else None
             metrics = train_step(
                 self.gen, self.disc, self.opt_g, self.opt_d, x,
                 self.dataset.source_id[ids], z, lr_g, lr_d, self.scfg, d_train=d_train,
                 lane_count=lanes, mask_on=gate, fake_pool=self.fake_pool,
-                pool_idx=self.step_pool_rows(epoch, i) if pooled else None,
-                concat_on=concat_on, drop_masks=self.step_dropout(epoch, i) or None,
+                pool_idx=rows, concat_on=concat_on, drop_masks=drop,
             )
             self.logger.log_step(epoch, t.epochs, i, steps, metrics)
             if mask_on:
@@ -369,7 +390,8 @@ class Trainer:
             self.engine.last_batch_mask = metrics["keep_mask"]
             self.engine.last_batch_valid = bs if lanes is None else lanes
         ev = cfg.eval
-        if ev.fid and ev.fid_every_epochs and (epoch + 1) % ev.fid_every_epochs == 0:
+        if ev.fid and ev.fid_every_epochs and (epoch + 1) % ev.fid_every_epochs == 0 \
+                and M.is_primary():
             # the periodic FID (`# 1,2,8.py:333-359`; `loop.py:738-753`)
             from ..eval.suite import evaluate_run
 

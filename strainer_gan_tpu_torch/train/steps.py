@@ -14,13 +14,15 @@ update.  G's backward reaches only G's parameters (``backward(inputs=)``),
 so D's update sees none of its gradients.
 
 The MLP's D may drop out (``dropout``, `# 1,2,8.py:110-128`).  Its keep
-masks are inputs of the step, ``drop_masks``: one (3, batch, width) bool
-tensor per hidden width, whose rows 0, 1 and 2 serve D's forward of the
-real batch, of the fakes in D's update and of the fakes in G's update,
-the three forwards the JAX step gives its own dropout keys
-(`steps.py:105-108`).  The step draws nothing, so a captured chunk replays
-the masks its caller filled, as it replays the noise.  ``flatten`` makes
-the real batch (N, H*W*C) rows for the MLP (`steps.py:110-111`).
+masks are inputs of the step, ``drop_masks``: one bool tensor per hidden
+width (``drop_shape``), whose rows 0, 1, 2 and 3 serve D's forward of the
+real batch, of the fakes in D's update, of the fakes in G's update and,
+with an in-step keep, the scoring forward, the forwards the JAX step
+gives their own dropout keys (`steps.py:105-108, 159-161`); with a pool,
+the fake forward's row spans all 2b lanes.  The step draws nothing, so a
+captured chunk replays the masks its caller filled, as it replays the
+noise.  ``flatten`` makes the real batch (N, H*W*C) rows for the MLP
+(`steps.py:110-111`).
 
 The per-batch quantile mask (``batch_mask`` with ``mask_on``, `# 상위
 10%...X.py:280-318`, `steps.py:130-190`): a no-grad scoring forward of the
@@ -61,6 +63,7 @@ import torch
 from ..data.pipeline import normalize_u8
 from ..ops import losses as L
 from ..ops import stats as S
+from ..parallel import mesh as M
 from .state import set_lr
 
 
@@ -83,8 +86,27 @@ class StepConfig(NamedTuple):
     flatten: bool = False
 
 
-DROP_FORWARDS = 3  # D forwards a step drops out in: real, fakes in D's update, G's update
-DROP_REAL, DROP_FAKE, DROP_G = range(DROP_FORWARDS)
+# D forwards a step drops out in: real, fakes in D's update, G's update and
+# the in-step keep's scoring forward
+DROP_REAL, DROP_FAKE, DROP_G, DROP_SCORE = range(4)
+
+
+def drop_shape(scfg: StepConfig, b: int, width: int) -> Tuple[int, int, int]:
+    """The shape of a step's keep masks for one hidden width of D, at batch
+    ``b``: a row per forward (the scoring row only where the step has an
+    in-step keep), and 2b lanes with a pool (D's fake forward then spans
+    the generated and the pool lanes; the other rows use the first b)."""
+    rows = 4 if (scfg.batch_mask or scfg.in_batch_recycle) else 3
+    return rows, 2 * b if scfg.pool_concat else b, width
+
+
+def rank_inputs(scfg: StepConfig, ids, z, pool_idx=None, drop=None):
+    """The rank's lanes of a global step's draws: sample indices, noise,
+    pool rows and keep masks ((rows, lanes, width) each); all as given
+    without a process group."""
+    drop = [M.lanes(m, dim=1, blocks=2 if scfg.pool_concat else 1) for m in drop or ()]
+    return (M.lanes(ids), M.lanes(z), None if pool_idx is None else M.lanes(pool_idx),
+            drop or None)
 
 
 def step_config_from(cfg) -> StepConfig:
@@ -92,9 +114,6 @@ def step_config_from(cfg) -> StepConfig:
     if s.fake_concat not in ("none", "in_batch", "pool"):
         raise ValueError(f"unknown fake_concat {s.fake_concat!r}")
     batch_mask = s.method == "batch_quantile_mask"
-    if m.d_dropout > 0 and (batch_mask or s.fake_concat != "none"):
-        raise ValueError("D dropout with the in-step mask or fake concatenation is not "
-                         "supported (no preset combines them)")
     return StepConfig(d_loss_reduction=t.d_loss_reduction, real_label=t.real_label,
                       fake_label=t.fake_label, batch_mask=batch_mask,
                       mask_quantile=s.mask_quantile,
@@ -198,10 +217,28 @@ def step_body(gen: torch.nn.Module, disc: torch.nn.Module,
       else 0) times the generated lanes' weights, and D_G_z1 covers the
       generated lanes only.  G trains on its generated fakes alone.
 
-    ``drop_masks``: D's keep masks, (3, b, width) bool per hidden width of
-    a D with dropout (rows ``DROP_REAL``, ``DROP_FAKE``, ``DROP_G``)."""
-    b = x.shape[0]
+    ``drop_masks``: D's keep masks, ``drop_shape`` bool per hidden width of
+    a D with dropout (rows ``DROP_REAL``, ``DROP_FAKE``, ``DROP_G`` and
+    ``DROP_SCORE``).
+
+    Under a process group (``parallel.mesh``) the step is one global step
+    over the ranks: ``x``, ``source_id``, ``z``, ``pool_idx`` and
+    ``drop_masks`` are the rank's lanes of the global batch
+    (``rank_inputs``), ``lane_count`` counts the global batch's valid
+    lanes, every BatchNorm statistic, loss mean, metric and counter is the
+    global batch's, the in-step quantile runs over the gathered scores,
+    and the gradients are summed over ranks before each Adam step.  The
+    per-sample metrics come back for the global batch, in rank order."""
+    with M.batch_sharded():
+        return _step(gen, disc, opt_g, opt_d, x, source_id, z, scfg, d_train, lane_count,
+                     mask_on, stem_share, fake_pool, pool_idx, concat_on, drop_masks)
+
+
+def _step(gen, disc, opt_g, opt_d, x, source_id, z, scfg, d_train, lane_count, mask_on,
+          stem_share, fake_pool, pool_idx, concat_on, drop_masks):
+    b = x.shape[0]  # the rank's lanes
     dev = x.device
+    sharded = M.sharded()
     if scfg.flatten:
         x = x.reshape(b, -1)
     if scfg.dropout > 0 and (drop_masks is None or len(drop_masks) != len(scfg.drop_widths)):
@@ -210,16 +247,19 @@ def step_body(gen: torch.nn.Module, disc: torch.nn.Module,
 
     def d_fwd(inp, w, row):
         if scfg.dropout > 0:
-            return disc(inp, w, train=d_train, drop_masks=[m[row] for m in drop_masks])
+            n = inp.shape[0]
+            return disc(inp, w, train=d_train, drop_masks=[m[row][:n] for m in drop_masks])
         return disc(inp, w, train=d_train)
 
     if scfg.pool_concat and not isinstance(concat_on, torch.Tensor):
         concat_on = torch.full((), float(bool(concat_on)), device=dev)  # a fill, no copy
-    valid = None
+    valid = valid_g = None
     valid_w = None
     if lane_count is not None:
-        valid = torch.arange(b, device=dev) < lane_count
+        off = M.rank() * b  # the global index of the rank's first lane
+        valid = torch.arange(off, off + b, device=dev) < lane_count
         valid_w = valid.to(torch.float32)
+        valid_g = M.all_gather(valid)
     real_t, fake_t = scfg.real_label, scfg.fake_label
     amp = autocast(x, scfg.compute_dtype)
 
@@ -227,6 +267,10 @@ def step_body(gen: torch.nn.Module, disc: torch.nn.Module,
     masked = (scfg.batch_mask or scfg.in_batch_recycle) and mask_on
     q = scfg.mask_quantile if scfg.batch_mask else scfg.recycle_quantile
     keep = torch.ones((b,), dtype=torch.bool, device=dev) if valid is None else valid
+    keep_g = keep  # the global batch's keep, for the metrics
+    if sharded:
+        keep_g = (torch.ones((b * M.world(),), dtype=torch.bool, device=dev) if valid is None
+                  else valid_g)
     h_real = None
     if masked:
         with amp:
@@ -234,14 +278,16 @@ def step_body(gen: torch.nn.Module, disc: torch.nn.Module,
                 h_real = disc.stem(x)  # with its graph: the real forward reuses it
             with torch.no_grad():
                 logits_s = (disc.head(h_real, valid_w, train=d_train) if stem_share
-                            else disc(x, valid_w, train=d_train))
-        probs_s = L.sigmoid_ftz(logits_s)  # as XLA computes jax.nn.sigmoid
+                            else d_fwd(x, valid_w, DROP_SCORE))
+        # as XLA computes jax.nn.sigmoid; over the global batch
+        probs_s = M.all_gather(L.sigmoid_ftz(logits_s))
         if valid is None:
-            keep = probs_s >= S.quantile(probs_s, q)
+            keep_g = probs_s >= S.quantile(probs_s, q)
         else:
             # a partial tail: the quantile of the valid lanes only, which is
             # torch.quantile on the smaller batch
-            keep = (probs_s >= S.masked_quantile(probs_s, valid, q)) & valid
+            keep_g = (probs_s >= S.masked_quantile(probs_s, valid_g, q)) & valid_g
+        keep = M.lanes(keep_g)  # each rank keeps its own lanes
     w_real = w_fake = keep.to(torch.float32) if masked else valid_w
 
     # ---- G forward, once; its graph serves the G step below.  G's BN
@@ -285,6 +331,7 @@ def step_body(gen: torch.nn.Module, disc: torch.nn.Module,
         per_fake = L.bce_from_logits(out_f, fake_t)
         err_d = L.d_loss(per_real, per_fake, scfg.d_loss_reduction, w_real, w_fd)
         err_d.backward()
+        M.sync_grads(disc.parameters())
         opt_d.step()
         return err_d, out_r, out_f, per_real, per_fake, w_fd, gen_slot
 
@@ -298,6 +345,7 @@ def step_body(gen: torch.nn.Module, disc: torch.nn.Module,
             out_g = d_fwd(fake_g, w_fg, DROP_G)
         err_g = L.weighted_mean(L.bce_from_logits(out_g, real_t), w_fg)
         err_g.backward(inputs=list(gen.parameters()))
+        M.sync_grads(gen.parameters())
         opt_g.step()
         return err_g, out_g, w_fg
 
@@ -314,21 +362,29 @@ def step_body(gen: torch.nn.Module, disc: torch.nn.Module,
             contam = torch.logical_and(contam, valid)  # pads never count
         filtered = (torch.logical_and(contam, torch.logical_not(keep)).sum() if masked
                     else torch.zeros((), dtype=torch.int64, device=dev))
-        metrics = dict(
+        means = dict(
             errD=err_d.detach(), errG=err_g.detach(),
             errD_real=L.weighted_mean(per_real, w_real).detach(),
             errD_fake=L.weighted_mean(per_fake, w_fd).detach(),
             D_x=L.weighted_mean(torch.sigmoid(out_r), w_real),
             D_G_z1=L.weighted_mean(torch.sigmoid(out_f),
                                    gen_slot if scfg.pool_concat else w_fd),
-            D_G_z2=L.weighted_mean(torch.sigmoid(out_g), w_fg),
-            real_loss_per_sample=per_real.detach(),
-            keep_mask=keep,
+            D_G_z2=L.weighted_mean(torch.sigmoid(out_g), w_fg))
+        counts = dict(n_contam=contam.sum(), n_filtered_contam=filtered)
+        if sharded:
+            # the ranks' shares and counts summed: one collective each
+            for group in (means, counts):
+                total = M.all_reduce_(torch.stack(list(group.values())))
+                group.update(zip(group, total.unbind()))
+        metrics = dict(
+            means,
+            real_loss_per_sample=M.all_gather(per_real.detach()),
+            keep_mask=keep_g,
             # the scores the mask came from, for the parity report
             score_probs=(probs_s if masked
-                         else torch.zeros((b,), dtype=torch.float32, device=dev)),
-            n_contam=contam.sum(),
-            n_filtered_contam=filtered,
+                         else torch.zeros((keep_g.shape[0],), dtype=torch.float32,
+                                          device=dev)),
+            **counts,
         )
     return metrics
 
@@ -346,8 +402,8 @@ class ChunkedStep:
 
     Static inputs: ``idx`` (chunk, batch) sample indices and ``z`` (chunk,
     batch, nz) noise, filled from the caller's draws at each call (and, for
-    a D with dropout, ``drop``: D's keep masks, one (chunk, 3, batch,
-    width) bool buffer per hidden width, filled the same way, so each
+    a D with dropout, ``drop``: D's keep masks, one (chunk,) +
+    ``drop_shape`` bool buffer per hidden width, filled the same way, so each
     replay drops out with fresh masks); each
     step gathers and normalises its batch from the dataset inside the
     chunk, as the JAX scan's ``jnp.take`` does.  With a ``fake_pool`` (the
@@ -386,8 +442,8 @@ class ChunkedStep:
         self.z = torch.zeros((chunk, b, scfg.nz), dtype=torch.float32, device=dev)
         self.pool_idx = torch.zeros((chunk, b), dtype=torch.int64, device=dev)
         self.concat_on = torch.zeros((), dtype=torch.float32, device=dev)
-        self.drop = [torch.zeros((chunk, DROP_FORWARDS, b, w), dtype=torch.bool, device=dev)
-                     for w in scfg.drop_widths]
+        self.drop = [torch.zeros((chunk,) + drop_shape(scfg, b, w), dtype=torch.bool,
+                                 device=dev) for w in scfg.drop_widths]
         self.out = {k: torch.zeros((chunk,) + tuple(v.shape), dtype=v.dtype, device=dev)
                     for k, v in like.items()}
         self.graph = None
@@ -396,13 +452,14 @@ class ChunkedStep:
     def _body(self) -> None:
         ds = self.dataset
         for j in range(self.chunk):
-            ids = self.idx[j]
+            # the rank's lanes of the step (all of them without a group)
+            ids, z, pool_idx, drop = rank_inputs(self.scfg, self.idx[j], self.z[j],
+                                                 self.pool_idx[j], [m[j] for m in self.drop])
             m = step_body(self.gen, self.disc, self.opt_g, self.opt_d,
                           normalize_u8(ds.gather(ids), torch.float32), ds.source_id[ids],
-                          self.z[j], self.scfg, d_train=self.d_train, mask_on=self.mask_on,
+                          z, self.scfg, d_train=self.d_train, mask_on=self.mask_on,
                           stem_share=self.stem_share, fake_pool=self.fake_pool,
-                          pool_idx=self.pool_idx[j], concat_on=self.concat_on,
-                          drop_masks=[m[j] for m in self.drop] or None)
+                          pool_idx=pool_idx, concat_on=self.concat_on, drop_masks=drop)
             for k, v in m.items():
                 self.out[k][j].copy_(v)
 
@@ -437,7 +494,7 @@ class ChunkedStep:
         """Run the chunk on ``idx`` (chunk, batch) and ``z`` (chunk, batch, nz)
         at rates ``lr_g``, ``lr_d`` (with a fake pool: on its rows
         ``pool_idx`` (chunk, batch), gated by ``concat_on``; with dropout:
-        D's keep masks ``drop``, (chunk, 3, batch, width) per hidden width);
+        D's keep masks ``drop``, (chunk,) + ``drop_shape`` per hidden width);
         returns the stacked metrics."""
         self.idx.copy_(idx)
         self.z.copy_(z)

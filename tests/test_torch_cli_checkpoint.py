@@ -150,7 +150,8 @@ def test_cli_list(capsys):
     assert "strain=loss_percentile" in text
 
 
-@pytest.mark.parametrize("flag", [["--dp", "2"], ["--eval"], ["--preset", "nope"],
+@pytest.mark.parametrize("flag", [["--dp", "100000"], ["--preset", "mnist8", "--eval"],
+                                  ["--preset", "nope"],
                                   ["--config", "/nonexistent.json"]])
 def test_cli_refuses_with_code_2(flag, capsys):
     assert cli.main(flag + ["--device", "cpu"]) == 2

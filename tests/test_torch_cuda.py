@@ -35,7 +35,12 @@ replayed; the recycling and pooled fake-concat steps replay bit-equal to
 eager steps across their gates.  The MNIST MLP steps (G first; D first
 with dropout) replay bit-equal to eager steps, with fresh keep masks each
 replay, and the FID chain (InceptionV3, the matrix square root) meets the
-backbone fixture on the card in float32.
+backbone fixture on the card in float32, as does the eval suite's ResNet50
+(rtol 1e-3, atol 1e-2).  The data-parallel rank path under an NCCL group
+of one rank (a child process with a launcher's environment,
+``tests/test_torch_dp_worker.py``) trains a narrow ``batch_mask`` across its
+gate bit-equal to the same run with no group, replayed (its collectives
+recorded into the CUDA graphs) and eager.
 """
 import numpy as np
 import pytest
@@ -724,3 +729,74 @@ def test_failed_capture_raises(cuda_device, monkeypatch):
     # the warm-up step ran; nothing after it
     assert tr.logger.summary()["steps"] == 1
     torch.cuda.synchronize()
+
+
+# ---- the eval suite's ResNet50 and the rank path (NCCL)
+
+
+@pytest.mark.cuda
+def test_resnet50_fixture_on_the_card(cuda_device):
+    """The eval suite's ResNet50 (synthetic weights) on the card in float32
+    with TF32 off: the fixture's features within rtol 1e-3 / atol 1e-2
+    (tests/test_backbone_fixtures.py:65-71)."""
+    import os
+
+    from strainer_gan_tpu_torch.models.features import build_feature_fn
+
+    fx = np.load(os.path.join(os.path.dirname(__file__), "fixtures", "backbones.npz"))
+    x = ((fx["resnet_input_u8"].astype(np.float32) / 255.0) - 0.5) / 0.5
+    f = build_feature_fn("resnet50", 3, cuda_device)
+    got = f(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().to(cuda_device))
+    np.testing.assert_allclose(got.cpu().numpy(), fx["resnet50_features"], rtol=1e-3,
+                               atol=1e-2)
+
+
+@pytest.fixture(scope="module")
+def nccl_runs(tmp_path_factory):
+    """``tests/test_torch_dp_worker.py::card_rank_runs`` in a child process under
+    a launcher's environment of one rank (NCCL on the card), with a 600 s
+    limit."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the NCCL group runs on the card")
+    path = tmp_path_factory.mktemp("nccl") / "runs.pt"
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port),
+               PYTHONPATH=os.pathsep.join([here, os.path.dirname(here)]))
+    res = subprocess.run([sys.executable, "-c", "import sys, test_torch_dp_worker as W; "
+                          "W.card_rank_runs(sys.argv[1])", str(path)], env=env, cwd=here,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return torch.load(path, weights_only=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spd", [4, 1], ids=["replayed", "eager"])
+def test_rank_path_nccl_world1_equals_no_group(cuda_device, nccl_runs, spd):
+    """The rank path under an NCCL group of one rank (its collectives in
+    the step, replayed inside the CUDA graphs or eager) trains a narrow
+    ``batch_mask`` across its gate bit-equal to the same run with no
+    group: parameters, BatchNorm buffers, Adam state, losses, per-sample
+    history, masks, contamination counts and console text."""
+    import test_torch_dp_worker as W
+
+    assert nccl_runs["backend"] == "nccl" and nccl_runs["world"] == 1
+    got, want = nccl_runs[spd], W.card_snapshot(spd)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(got[k], v), k
+        elif k in ("history", "masks"):
+            assert all(np.array_equal(a, b) for a, b in zip(got[k], v)), k
+        else:
+            assert got[k] == v, k
+    assert (got["graphs"]["replays"] > 0) == (spd == 4)
+    assert got["contam"][1] > 0

@@ -16,8 +16,9 @@
   eval-mode forward on the same noise.
 * The command line: ``--preset mnist8 --epochs 1 --device cpu`` as a
   process, ``celeba_dog_baseline`` for one epoch on a small synthetic
-  mixture (no ``--eval``), and ``--list`` with all 21 presets; the suite's
-  ResNet50 distances raise "not ported yet".
+  mixture (no ``--eval``), and ``--list`` with all 21 presets; the suite
+  on ``fake_concat``'s config gives its six values (ResNet50 distances and
+  FIDs, the FIDs on the small feature map above), all finite.
 """
 import dataclasses
 import io
@@ -191,14 +192,22 @@ def test_cli_mnist8_process(tmp_path):
     assert (tmp_path / "samples.png").exists() and (tmp_path / "metrics.json").exists()
 
 
-def test_cli_celeba_dog_baseline_and_list(capsys):
+def test_cli_celeba_dog_baseline_and_list(capsys, monkeypatch):
     tr, results = cli.run(["--preset", "celeba_dog_baseline", "--epochs", "1", "--device",
                            "cpu", "--max-synth", "300", "--batch-size", "16"])
     assert results["epochs"] == 1 and tr.fid_history == []
     assert (tr.dataset.source_id != 0).sum() > 0  # the CIFAR-like dogs
     assert np.isfinite(results["summary"]["last_D_loss"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TSU.evaluate_run(get_preset("fake_concat"), tr.gen, tr.dataset, n_samples=8)
+    # the suite's six values, its FIDs on a small fixed feature map (InceptionV3's
+    # 2048-dim square root takes about 30 s on one CPU thread; test_torch_fid.py)
+    proj = torch.from_numpy(np.random.default_rng(0).standard_normal((3, 16)).astype(np.float32))
+    monkeypatch.setattr(TF, "inception_fn", lambda dev: (
+        lambda x: torch.tanh(x.mean(dim=(2, 3)) @ proj) + 1.5))
+    ev = TSU.evaluate_run(get_preset("fake_concat"), tr.gen, tr.dataset, n_samples=8)
+    assert set(ev) == {"fid_real", "fid_contaminant", "feature_distance_real",
+                       "feature_distance_contaminant", "wasserstein_real",
+                       "wasserstein_contaminant"}
+    assert all(np.isfinite(v) for v in ev.values())
     capsys.readouterr()
     assert cli.main(["--list"]) == 0
     listed = capsys.readouterr().out.splitlines()
