@@ -57,6 +57,18 @@ script exits non-zero without printing its result line:
    serve: a ``Sampler`` from the run's checkpoint makes 256 images at batch
    64 (a warm-up batch, then one graph replay a batch); replayed batches
    equal eager ones on the same noise; latency a batch, replayed and eager.
+   deferred: ``final`` on the run's staged images for 6 epochs with the
+   logger's no-history mode (``collect=False``) and no grids
+   (``sample_every=0``), its strain keeping 40, 30 and 20 % of its base at
+   epochs 3-5 (a shrinking count, each with a partial tail): epochs 4 and 5
+   take the deferred-stats path (the stats fetched while the gated chunks
+   run: each step of a chunk under a CUDA graph conditional IF node, the
+   partial tail a gated one-step graph), and the run is bit-equal to the
+   same run blocking.  Prints the conditional nodes, the deferred epochs,
+   each strain event's host time from the strain's return to the first
+   training launch on both paths (the chunked phase's method), a wholly
+   dead chunk's launch time and a live gated step's time beside the
+   ungated replay's.
 5. zscore_dbscan: the ``zscore_dbscan`` preset at full width, batch 128, on
    its full synthetic mixture (40,000 images): the DBSCAN-calibrated
    z-score prefilter (K2, then K3 twice), then training.
@@ -74,7 +86,8 @@ script exits non-zero without printing its result line:
 9. zscore_loss: through the command line, epochs 0-3: the elbow prefilter
    (K2a, K2b) held to the numpy oracle's elbow mask (agreement >= 0.99, the
    repo's own bound), then the epoch-3 loss strain (K1) held to numpy's
-   percentile, and the parity report at 1.0.
+   percentile, and the parity report at 1.0; without grids, so epoch 3
+   takes the deferred-stats path.
 10. batch_mask: through the command line with ``--epochs 11 --max-synth
    4096 --parity-check``, across the gate epoch (10): the ``Filtered
    CIFAR-10 images`` line equal to the epoch's counts, the last gated
@@ -105,7 +118,9 @@ script exits non-zero without printing its result line:
    the chunked phase is done; each run must be bit-equal to the same run
    with no group, phase 9's and the chunked phase's (parameters,
    BatchNorm buffers, Adam state, losses, per-sample history, masks, last
-   metrics, grids, console text).  Prints the collectives, K1/K2a/K2b's
+   metrics, grids, console text); ``zscore_loss``'s epoch 3 is deferred
+   there too, its gated chunks' conditional nodes around NCCL collectives.
+   Prints the collectives, K1/K2a/K2b's
    launches on the rank path, and the replayed masked step's ms with and
    without the collectives, each timed alone on the card.
 11. in_batch_recycle: through the command line with ``--epochs 4
@@ -171,6 +186,9 @@ Deviations from the presets, each for a reason:
 - ``final``: ``--epochs 4`` (epoch 3 is the first strain event) and
   ``--max-synth 8192`` per source (16,384 images, 128 steps per epoch, to
   bound the run's time).  Nothing else: it scores by the shipped band path.
+- ``final`` (deferred): 6 epochs (the strain epochs 4 and 5 are the first
+  a warmed-up capture key lets defer) on the slice's images, its clean
+  ratios changed so that the count shrinks.
 - ``zscore_dbscan``: ``epochs=2`` (the prefilter is the preset's only
   strain event; further epochs repeat the same step).
 - ``zscore_elbow``: ``max_synth=2048`` per source and only the prefilter
@@ -181,7 +199,8 @@ Deviations from the presets, each for a reason:
   steps: a sample-point step, a warm-up step and one chunk of 32).
 - ``zscore_loss``: ``--max-synth 2560`` per source and epochs 0-3 (its
   first loss strain is at epoch 3; about 36 steps an epoch, so that an
-  epoch holds a chunk).
+  epoch holds a chunk); ``sample_every=0`` (a config JSON), so
+  that its strain epoch is deferred, here and in the dp child.
 - ``loss_gmm``, ``loss_ensemble``, ``autoencoder``: the first 16,384 of the
   ``zscore_dbscan`` phase's 40,000 staged images (their own data
   configuration, ``_CELEBA_CIFAR20K``), so nothing is staged twice; 2
@@ -1023,13 +1042,25 @@ def basic_phase(torch, np):
           f"s, {time.perf_counter() - t0:.2f} s in all; no strain; {graphs(tr, 'basic')}")
 
 
-ZSCORE_LOSS_ARGS = ["--preset", "zscore_loss", "--epochs", "4", "--max-synth", "2560",
-                    "--parity-check"]
+def zscore_loss_args(tmp: Path) -> list:
+    """``zscore_loss`` through the command line, epochs 0-3 on 2,560 images
+    a source, with ``sample_every=0`` (a config JSON): no fixed-noise
+    grids, so its epoch-3 strain takes the deferred-stats path."""
+    from strainer_gan_tpu_torch import get_preset
+
+    cfg = get_preset("zscore_loss")
+    path = tmp / "zscore_loss_no_grids.json"
+    if not path.exists():  # written once: the child reads it while the parent runs
+        path.write_text(cfg.replace(
+            train=dataclasses.replace(cfg.train, sample_every=0)).to_json())
+    return ["--config", str(path), "--epochs", "4", "--max-synth", "2560", "--parity-check"]
 
 
-def zscore_loss_phase(torch, np):
+def zscore_loss_phase(torch, np, tmp: Path):
     """``zscore_loss`` through the command line, epochs 0-3: the elbow
-    prefilter (K2a, K2b), then the epoch-3 loss strain by the band path (K1)."""
+    prefilter (K2a, K2b), then the epoch-3 loss strain by the band path
+    (K1), its epoch deferred (the stats fetched while its gated chunks
+    run)."""
     from strainer_gan_tpu_torch import cli, kernels
     from strainer_gan_tpu_torch.parity import oracle
     from strainer_gan_tpu_torch.strain import thresholds as TH
@@ -1037,7 +1068,7 @@ def zscore_loss_phase(torch, np):
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(Tee(sys.stdout)) as tee:
-        tr, results = cli.run(ZSCORE_LOSS_ARGS)
+        tr, results = cli.run(zscore_loss_args(tmp))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = kernels.launch_counts()
@@ -1068,6 +1099,9 @@ def zscore_loss_phase(torch, np):
     parity = results.get("parity", {})
     check(parity.get("agreement") == 1.0, f"zscore_loss parity report {parity}")
     check(np.all(np.isfinite(tr.logger.D_losses)), "zscore_loss: non-finite losses")
+    gs = tr.graph_stats
+    check(gs["deferred_epochs"] == 1 and gs["conditional_nodes"] > 0,
+          f"zscore_loss: {gs['deferred_epochs']} deferred epochs, want 1 (epoch 3)")
     n_rescored, fell_back, drift = (eng.last_band_stats.tolist()
                                     if eng.last_band_stats is not None else (0, 0, 0))
     phase("zscore_loss", f"{tr.dataset.n} images: elbow prefilter kept {int(base.sum())} at "
@@ -1076,7 +1110,8 @@ def zscore_loss_phase(torch, np):
           f"{lthr_np:.8g}; re-scored {n_rescored:.0f}, fell back {fell_back:.0f}, drift "
           f"{drift:.3g}); parity {parity.get('agreement')}; {results['summary']['steps']} "
           f"steps, {seconds:.2f} s in all; kernels {json.dumps(launches)}; "
-          f"{graphs(tr, 'zscore_loss')}")
+          f"{graphs(tr, 'zscore_loss')}; epoch 3 deferred ({gs['gated_replays']} gated "
+          f"launches, {gs['conditional_nodes']} conditional nodes)")
     return tr, tee.copy.getvalue()
 
 
@@ -1754,6 +1789,155 @@ def chunked_final(torch, np, tr, console: str, ckpt: Path):
           f"the end of _fetch_epoch_stats, {(t_launch - marks['strain']) * 1e3:.3f} ms to the "
           f"first training launch ({kind}: epoch 3 trains {fresh.epoch_results[-1]['steps']} "
           f"steps with a new capture key, d_train off)")
+
+
+# final's strain keeps 40, 30 and 20 % of its base at epochs 3, 4 and 5 (its
+# ratio inversion): a shrinking count, so each deferred guess overshoots
+DEFERRED_SCHEDULE = ((0, 1.0), (3, 0.6), (4, 0.7), (5, 0.8))
+DEFERRED_EPOCHS = 6
+
+
+def first_launches(LP, ST, run, marks: list):
+    """Instrument ``run``: each strain's return on the host appends a mark,
+    and the end of the epoch's stats dispatch, of its fetch and of its
+    index draw, and its first training launch (an eager step, a replay or
+    a gated launch) are recorded in it.  Returns the undo."""
+    strain = run.engine.on_epoch_start
+    saved = LP.train_step, ST.ChunkedStep.__call__, ST.GatedChunkedStep.__call__
+
+    def strained(*a, **kw):
+        out = strain(*a, **kw)
+        marks.append({"strain": time.perf_counter()})
+        return out
+
+    def first(kind, fn):
+        def wrapped(*a, **kw):
+            if marks:
+                marks[-1].setdefault("launch", (time.perf_counter(), kind))
+            return fn(*a, **kw)
+        return wrapped
+
+    def marked(name, fn):
+        def wrapped(*a, **kw):
+            out = fn(*a, **kw)
+            if marks:
+                marks[-1].setdefault(name, time.perf_counter())
+            return out
+        return wrapped
+
+    run.engine.on_epoch_start = strained
+    run._dispatch_epoch_stats = marked("dispatch", run._dispatch_epoch_stats)
+    run._fetch_epoch_stats = marked("fetch", run._fetch_epoch_stats)
+    run.epoch_indices = marked("indices", run.epoch_indices)
+    LP.train_step = first("an eager step", saved[0])
+    ST.ChunkedStep.__call__ = first("a replay", saved[1])
+    ST.GatedChunkedStep.__call__ = first("a gated launch", saved[2])
+
+    def undo():
+        LP.train_step, ST.ChunkedStep.__call__, ST.GatedChunkedStep.__call__ = saved
+    return undo
+
+
+def deferred_phase(torch, np, tr):
+    """``final`` with the no-history logger and no grids for 6 epochs on the
+    slice phase's staged dataset, strained every epoch from 3 with a
+    shrinking count and a partial tail: deferred (epochs 4 and 5 through
+    the gated chunks) against blocking, bit for bit; the strain's return
+    to the first launch on both paths; the gated chunk's own costs."""
+    from strainer_gan_tpu_torch import kernels
+    from strainer_gan_tpu_torch.kernels.gated_graph import GatedGraph
+    from strainer_gan_tpu_torch.obs.metrics import MetricsLogger
+    from strainer_gan_tpu_torch.train import loop as LP
+    from strainer_gan_tpu_torch.train import steps as ST
+
+    base = tr.cfg
+    cfg = base.replace(
+        train=dataclasses.replace(base.train, epochs=DEFERRED_EPOCHS, sample_every=0),
+        strain=dataclasses.replace(base.strain, clean_ratio_schedule=DEFERRED_SCHEDULE))
+    runs = {}
+    for defer in (True, False):
+        run = LP.Trainer(
+            cfg.replace(train=dataclasses.replace(cfg.train, defer_epoch_stats=defer)),
+            dataset=tr.dataset,
+            logger=MetricsLogger(log_every=cfg.train.log_every, stream=io.StringIO(),
+                                 collect=False))
+        marks = []
+        undo = first_launches(LP, ST, run, marks)
+        kernels.reset_launch_counts()
+        GatedGraph.launches = 0
+        t0 = time.perf_counter()
+        try:
+            run.run()
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        runs[defer] = (run, time.perf_counter() - t0, kernels.launch_counts(),
+                       GatedGraph.launches, marks)
+    (d, d_s, d_k, d_g, d_marks), (b, b_s, b_k, _, b_marks) = runs[True], runs[False]
+    gs = d.graph_stats
+    check(gs["deferred_epochs"] == 2 and gs["blocking_epochs"] == 2,
+          f"deferred run: {gs['deferred_epochs']} deferred, {gs['blocking_epochs']} blocking "
+          "strain epochs, want 2 and 2 (epochs 0 and 3 warm their capture keys up)")
+    check(gs["conditional_nodes"] > 0 and gs["gated_replays"] > 0 and d_g > 0,
+          f"no conditional node or gated launch: {gs['conditional_nodes']} nodes, {d_g} "
+          "launches")
+    check(b.graph_stats["deferred_epochs"] == 0, "the blocking run deferred an epoch")
+    for k in (d_k, b_k):
+        check(k["bce_scores"] >= 3 and k["zscore_column_stats"] >= 1
+              and k["zscore_row_max"] >= 1, f"deferred phase launches {k}")
+    active = [r["active"] for r in d.epoch_results]
+    bs = cfg.data.batch_size
+    check(active[3] > active[4] > active[5] and all(a % bs for a in active[3:]),
+          f"active counts {active}: want a shrinking count with a partial tail")
+    check(d.mask_history == d.epoch_loss_history == d.img_list == []
+          and d.logger.G_losses == [], "the no-history run kept a history")
+    phase("deferred", same_run(torch, np, d, b, d.logger.stream.getvalue(),
+                               b.logger.stream.getvalue(),
+                               f"final deferred vs blocking ({DEFERRED_EPOCHS} epochs, "
+                               f"collect=False, sample_every=0)"))
+    cap = ", ".join(f"{c:.2f}+{i:.2f}" for c, i in zip(gs["capture_s"], gs["instantiate_s"]))
+    phase("deferred", f"{tr.dataset.n} images, active per epoch {active}; deferred epochs "
+          f"{gs['deferred_epochs']}, blocking strain epochs {gs['blocking_epochs']}; "
+          f"{gs['captures']} graphs captured (capture+instantiate s: {cap}) with "
+          f"{gs['conditional_nodes']} conditional nodes; {gs['replays']} launches, "
+          f"{gs['gated_replays']} of them gated; K1 {d_k['bce_scores']}, K2a "
+          f"{d_k['zscore_column_stats']}, K2b {d_k['zscore_row_max']}; whole run {d_s:.2f} s "
+          f"deferred, {b_s:.2f} s blocking ({CARD})")
+
+    def to_launch(marks):
+        def ms(m, k):
+            return (m[k] - m["strain"]) * 1e3
+
+        return ", ".join(
+            f"epoch {e}: {(m['launch'][0] - m['strain']) * 1e3:.3f} ms ({m['launch'][1]}; "
+            f"stats dispatched {ms(m, 'dispatch'):.3f}, fetched {ms(m, 'fetch'):.3f}, "
+            f"indices drawn {ms(m, 'indices'):.3f} ms)"
+            for e, m in enumerate(marks) if e >= 3 and "launch" in m)
+
+    phase("deferred", f"the strain's return on the host to the epoch's first training launch "
+          f"(host clock, {CARD}): "
+          f"deferred run {to_launch(d_marks)}; blocking run {to_launch(b_marks)}")
+
+    # the gated chunk's own costs, on its static buffers (after the checks:
+    # these launches train on)
+    key = next(iter(d._gated))
+    gated, plain = d._gated[key], d._executors[key]
+    chunk = key[0]
+    gated.c0.fill_(0)
+    gated.bound.fill_(0)
+    dead = time_ms(torch, gated.graph.launch, iters=200, warmup=10)
+    gated.bound.fill_(chunk)
+    live, ungated = [], []
+    for order in ("gu", "ug", "gu"):
+        for which in order:
+            fn, out = ((gated.graph.launch, live) if which == "g"
+                       else (plain.graph.replay, ungated))
+            out.append(time_ms(torch, fn, iters=4, warmup=1) / chunk)
+    phase("deferred", f"a wholly dead gated chunk of {chunk}: {dead:.4f} ms a launch (CUDA "
+          f"events, 200 back to back); a live gated step "
+          f"{' / '.join(f'{v:.4f}' for v in live)} ms, the ungated replay's step "
+          f"{' / '.join(f'{v:.4f}' for v in ungated)} ms (CUDA events, 4 chunks a "
+          f"measurement, in the order g u u g g u; {CARD})")
 
 
 def chunked_batch_mask(torch, np, bm):
@@ -2451,7 +2635,7 @@ DP_CHILD = "--dp-child"
 def dp_config(tmp: Path) -> list:
     """The dp phase's runs: ``batch_mask`` gated from epoch 1 for 3 epochs
     (the chunked phase's configuration, through a config JSON), and
-    ``zscore_loss`` as its phase runs it."""
+    ``zscore_loss`` as its phase runs it (its epoch-3 strain deferred)."""
     from strainer_gan_tpu_torch import get_preset
 
     cfg = get_preset("batch_mask")
@@ -2460,7 +2644,7 @@ def dp_config(tmp: Path) -> list:
     if not path.exists():  # written once: the child reads it while the parent runs
         path.write_text(cfg.to_json())
     return [("batch_mask", ["--config", str(path), "--epochs", "3", "--max-synth", "4096"]),
-            ("zscore_loss", ZSCORE_LOSS_ARGS)]
+            ("zscore_loss", zscore_loss_args(tmp))]
 
 
 def run_snapshot(torch, tr, text: str, launches: dict) -> dict:
@@ -2612,6 +2796,10 @@ def dp_phase(torch, np, child_proc, tmp: Path, zl, zl_text: str, bm_run):
         check(all(torch.equal(a[k], b[k]) for a, b in zip(got["last"], want["last"]) for k in a),
               f"dp {name}: an epoch's last metrics differ")
         check(got["graphs"]["replays"] > 0, f"dp {name}: no chunk replayed")
+    fd = child["zscore_loss"]["graphs"]
+    check(fd["deferred_epochs"] == 1 and fd["conditional_nodes"] > 0,
+          f"dp zscore_loss: {fd['deferred_epochs']} epochs deferred, "
+          f"{fd['conditional_nodes']} conditional nodes")
     gz = child["zscore_loss"]["launches"]
     check(gz["bce_scores"] >= 1 and gz["zscore_column_stats"] >= 1
           and gz["zscore_row_max"] >= 1, f"dp zscore_loss launches {gz}")
@@ -2627,6 +2815,9 @@ def dp_phase(torch, np, child_proc, tmp: Path, zl, zl_text: str, bm_run):
           f"{json.dumps(child['zscore_loss']['collectives'])}; zscore_loss launches on the "
           f"rank path: K1 {gz['bce_scores']}, K2a {gz['zscore_column_stats']}, K2b "
           f"{gz['zscore_row_max']}")
+    phase("dp", f"zscore_loss's deferred epoch 3 on the rank path ({fd['gated_replays']} gated "
+          f"launches, {fd['conditional_nodes']} conditional nodes around the NCCL "
+          f"collectives): bit-equal to the zscore_loss phase's deferred run with no group")
     phase("dp", f"the replayed masked step, batch 128, synchronised ({CARD}): "
           f"{bmc['masked_ms']:.3f} ms with the NCCL collectives (world size 1), "
           f"{plain_ms:.3f} ms without a group")
@@ -2662,23 +2853,35 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print("  ptxas: " + line.strip())
 
+    laps = [("build", time.perf_counter())]
+
+    def lap(name: str) -> None:  # the host seconds since the previous lap
+        laps.append((name, time.perf_counter()))
+
     host_staging_phase(np)
     results = kernel_phase(torch, port)
     adam_phase(torch, np)
+    lap("host_staging, kernels, adam")
     jax_fixture_phase(torch, np)
     loss_fixture_phase(torch, np)
     k3 = k3_phase(torch)
+    lap("fixtures, k3")
     with tempfile.TemporaryDirectory() as tmp:
         tr, launches, console = slice_phase(torch, np, Path(tmp))
+        lap("slice")
         band_phase(torch, np, tr, Path(tmp))
         chunked_final(torch, np, tr, console, Path(tmp) / "ckpt")
         serve_phase(torch, np, Path(tmp) / "ckpt")
+        lap("band, chunked, serve")
+        deferred_phase(torch, np, tr)
+        lap("deferred")
     del tr
     for r in results:
         r["launches"] = launches[r["name"]]
     dbscan_launches, staged = zscore_dbscan_phase(torch, np)
     k3["launches"] = dbscan_launches["neighbor_counts"]
     results.append(k3)
+    lap("zscore_dbscan")
     with tempfile.TemporaryDirectory() as tmp:
         # the dp child trains beside the next phases, then waits for its go
         child = dp_start(Path(tmp))
@@ -2687,12 +2890,16 @@ def main() -> int:
             del staged
             zscore_short_phases(torch, np)
             basic_phase(torch, np)
-            zl, zl_text = zscore_loss_phase(torch, np)
+            zl, zl_text = zscore_loss_phase(torch, np, Path(tmp))
+            lap("loss space, zscore_elbow, zscore, basic, zscore_loss")
             dp_wait_ready(child, Path(tmp))
+            lap("waiting for the dp child")
             bm = batch_mask_phase(torch, np)
             bm_run = chunked_batch_mask(torch, np, bm)
             del bm
+            lap("batch_mask, chunked")
             dp_phase(torch, np, child, Path(tmp), zl, zl_text, bm_run)
+            lap("dp")
         finally:
             if child[0].poll() is None:
                 child[0].kill()
@@ -2701,16 +2908,21 @@ def main() -> int:
     in_batch_recycle_phase(torch, np)
     with tempfile.TemporaryDirectory() as tmp:
         fake_pool_phase(torch, np, Path(tmp))
+    lap("in_batch_recycle, fake_pool")
     with tempfile.TemporaryDirectory() as tmp:
         mnist8_phase(torch, np, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         mnist_full_phase(torch, np, Path(tmp))
+    lap("mnist8, mnist_full")
     fid_phase(torch, np)
     with tempfile.TemporaryDirectory() as tmp:
         eval_phase(torch, np, Path(tmp))
+    lap("fid, eval")
     phase("staging", "host seconds a mixture, native: " + ", ".join(
         f"{name} {s:.2f} ({n})" for name, n, s in STAGING)
         + f"; {sum(s for _, _, s in STAGING):.2f} s in all")
+    phase("times", "host seconds by phases: " + ", ".join(
+        f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(laps, laps[1:])))
     phase("total", f"{time.perf_counter() - t_start:.1f} s from start to here")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -133,8 +133,9 @@ class TrainConfig:
     steps_per_dispatch: int = 32
     # the JAX scan's unroll factor; a graph has no counterpart: ignored
     scan_unroll: int = 1
-    # the JAX package's deferred strain-stats executor; not ported: the
-    # port always runs the blocking path (one fetch before the epoch's steps)
+    # a strain event's stats are fetched while its epoch's first chunks run
+    # (train/loop.py's deferred path: chunks gated on the device by the
+    # step count); applies to chunked epochs without fixed-noise grids
     defer_epoch_stats: bool = True
 
 

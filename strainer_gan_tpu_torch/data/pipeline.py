@@ -47,6 +47,26 @@ def epoch_batch_indices(active: torch.Tensor, num: int, batch_size: int,
     return order[pos].reshape(num, batch_size)
 
 
+def device_full_and_tail(active: torch.Tensor, batch_size: int) -> torch.Tensor:
+    """``[n_active // batch, n_active % batch]`` as one int64 device vector,
+    with no host read (`strainer_gan_tpu/data/pipeline.py:82-91`): the
+    deferred-stats path's full-step count and partial-tail size."""
+    n_active = active.sum()
+    return torch.stack([torch.div(n_active, batch_size, rounding_mode="floor"),
+                        torch.remainder(n_active, batch_size)])
+
+
+def device_step_count(active: torch.Tensor, batch_size: int,
+                      drop_last: bool = True) -> torch.Tensor:
+    """The epoch's step count as a 0-d int64 device tensor, with no host
+    read (`strainer_gan_tpu/data/pipeline.py:94-104`): full batches, plus
+    the partial one unless ``drop_last``."""
+    n_active = active.sum()
+    if not drop_last:
+        n_active = n_active + (batch_size - 1)
+    return torch.div(n_active, batch_size, rounding_mode="floor")
+
+
 class DeviceDataset:
     """uint8 images + source ids resident on ``device`` (default: the card)."""
 

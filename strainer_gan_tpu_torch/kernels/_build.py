@@ -26,7 +26,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("bce.cu", "pairwise.cu", "zscore.cu")
+SOURCES = ("bce.cu", "pairwise.cu", "zscore.cu", "gated_graph.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -132,6 +132,13 @@ def load_library() -> ctypes.CDLL:
         lib.sg_pairwise_counts.restype = i32
         lib.sg_dbscan_near_core.argtypes = [i32, vp, vp, i32, vp, vp]
         lib.sg_dbscan_near_core.restype = i32
+        lib.sg_gated_build.argtypes = [i32, vp, i32, vp, vp, i32, ctypes.POINTER(vp),
+                                       ctypes.POINTER(i32)]
+        lib.sg_gated_build.restype = i32
+        lib.sg_graph_launch.argtypes = [vp, vp]
+        lib.sg_graph_launch.restype = i32
+        lib.sg_graph_exec_destroy.argtypes = [vp]
+        lib.sg_graph_exec_destroy.restype = i32
         _lib = lib
         return lib
 

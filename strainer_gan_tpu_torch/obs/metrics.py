@@ -40,11 +40,18 @@ class Silent:
 
 class MetricsLogger:
     """``G_losses`` / ``D_losses`` / ``step_times`` are read-only views built
-    afresh at each read (the losses with one device fetch each)."""
+    afresh at each read (the losses with one device fetch each).
 
-    def __init__(self, log_every: int = 50, stream=None, style: str = "dcgan"):
+    ``collect=False`` keeps no loss series (`strainer_gan_tpu/obs/metrics.py:39-44`):
+    a Trainer with such a logger also keeps no mask or per-sample loss
+    history and draws no fixed-noise grids, which lets its strain epochs
+    take the deferred-stats path."""
+
+    def __init__(self, log_every: int = 50, stream=None, style: str = "dcgan",
+                 collect: bool = True):
         self.log_every = log_every
         self.style = style
+        self.collect = collect
         # under a process group only rank 0 prints
         self.stream = stream or (sys.stdout if is_primary() else Silent())
         self._g_parts: List[torch.Tensor] = []  # a step's 0-d loss or a chunk's (n,)
@@ -69,8 +76,9 @@ class MetricsLogger:
         return [dt / n for dt, n in self._timings for _ in range(n)]
 
     def _record(self, metrics: Dict[str, torch.Tensor], n: int) -> None:
-        self._g_parts.append(metrics["errG"])
-        self._d_parts.append(metrics["errD"])
+        if self.collect:
+            self._g_parts.append(metrics["errG"])
+            self._d_parts.append(metrics["errD"])
         now = time.perf_counter()
         self._timings.append((now - self._last, n))
         self._last = now

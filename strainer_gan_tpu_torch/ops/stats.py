@@ -101,7 +101,8 @@ def interpolate_sorted(xs: torch.Tensor, n_valid: torch.Tensor,
 def masked_percentile(x: torch.Tensor, valid: torch.Tensor, q: Scalar) -> torch.Tensor:
     """``np.percentile(x[valid], q)`` with static shapes (`ops/stats.py:80`):
     invalid lanes sort last at +float32 max."""
-    big = torch.tensor(torch.finfo(x.dtype).max, dtype=x.dtype, device=x.device)
+    # a fill, not a copy from the host: the gated tail captures this
+    big = torch.full((), torch.finfo(x.dtype).max, dtype=x.dtype, device=x.device)
     xs = torch.sort(torch.where(valid, x, big)).values
     return interpolate_sorted(xs, valid.sum(), _f32(q, x.device))
 

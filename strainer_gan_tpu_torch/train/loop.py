@@ -1,14 +1,26 @@
-"""The epoch loop (counterpart of `strainer_gan_tpu/train/loop.py`), its
-blocking chunked path (`loop.py:392-561`).
+"""The epoch loop (counterpart of `strainer_gan_tpu/train/loop.py`): its
+blocking chunked path (`loop.py:392-561`) and its deferred-stats path
+(`loop.py:563-704`).
 
 ``Trainer`` turns a config into a run: builds the mixture, stages it on
 the device, builds G/D and their Adam optimizers, wires the strainer, and
 drives the reference's per-epoch schedule (`# final.py:414-448`):
 prefilter -> [lr cut] -> [re-strain] -> batch loop.  One host fetch per
 strain event (active count, strain accounting and the band path's overflow
-flag) fixes the step count before the epoch's steps are launched (the
-blocking path; ``defer_epoch_stats`` is accepted and runs it too, as the
-JAX package's multi-host runs do, until the deferred executor is ported).
+flag) fixes the step count.  On the blocking path it comes before the
+epoch's steps are launched.  On the deferred path (``defer_epoch_stats``,
+a strain event of a chunked epoch without fixed-noise grids, whose capture
+key has had its warm-up step: decided before any capture, counted in
+``graph_stats`` as ``deferred_epochs`` and ``blocking_epochs``) the stats
+are enqueued first, then the chunks of a guessed step count (the previous
+epoch's, or the capacity of the permanent base), each step gated on the
+device by the live count (``steps.GatedChunkedStep``: CUDA graph IF nodes
+on the card); the fetch waits while they run, catch-up chunks follow a
+short guess, then the gated partial tail, and only the live rows are
+accounted.  Draws made for steps past the live count are undone (the
+generators set back and drawn again up to it), so every later draw is the
+one the blocking path makes.  A deferred epoch whose gated capture or
+launch fails raises; it never becomes a blocking one.
 
 The epoch is cut into segments that end right after each fixed-noise
 sample point (``sample_every``); each segment runs as full chunks of
@@ -29,7 +41,10 @@ captures and replays, beside ``kernel_launches``.
 The console prints every ``log_every`` steps (at most one host fetch a
 chunk), the fixed-noise grids every ``sample_every`` iterations, the
 epoch's per-sample loss history and, on epochs of the in-step mask, one
-packed fetch of the contamination counters are the other host reads.
+packed fetch of the contamination counters are the other host reads.  A
+logger with ``collect=False`` (the ``logger`` argument) keeps no loss
+series, and the Trainer then keeps no mask or per-sample loss history and
+draws no grids (`loop.py:365`).
 
 Fake concatenation (`loop.py:271-282, 359-372`): an ``in_batch_recycle``
 config turns the step's in-step keep on from ``fake_concat_start_epoch``
@@ -53,7 +68,8 @@ step's noise from the Trainer's generator, ``step_dropout`` a step's keep
 masks from ``drop_rng``, and ``pool_order`` and ``step_pool_rows`` the
 pool's permutations from its own (``pool_rng``), outside any graph and in
 the per-step order; a test may replace them on an instance to hand the
-port the JAX package's draws.
+port the JAX package's draws (a deferred epoch asks for the capacity's
+index rows and for the draws of every step it dispatches, dead ones too).
 
 ``kernel_launches`` holds how often each CUDA kernel wrapper launched
 during ``run()``.
@@ -81,6 +97,7 @@ import torch
 
 from ..config import ExperimentConfig
 from ..data import DeviceDataset, build_mixture, epoch_batch_indices, normalize_u8
+from ..data.pipeline import device_full_and_tail
 from ..device import resolve_device
 from ..kernels import launch_counts
 from ..models import build_models
@@ -93,20 +110,25 @@ from ..strain.pool import fake_pool_rows
 from ..utils.trees import finite_check
 from .schedules import lr_at
 from .state import make_optimizers
-from .steps import (ChunkedStep, autocast, drop_shape, pool_indices, rank_inputs,
-                    step_config_from,
-                    train_step)
+from .steps import (ChunkedStep, GatedChunkedStep, autocast, drop_shape, pool_indices,
+                    rank_inputs, step_config_from, train_step)
 
 BAND_COOLOFF_EVENTS = 5  # f32 strain events after a band overflow (`loop.py:302-308`)
 POOL_SEED_OFFSET = 13  # the fake pool's generator: seeded cfg.train.seed + 13
 DROP_SEED_OFFSET = 17  # D's dropout masks' generator: seeded cfg.train.seed + 17
+# the strainers whose mask is picked from the whole dataset, not from the
+# permanent base: a deferred epoch's step capacity is then the dataset's
+FULL_SET_STRAINERS = ("loss_gmm", "loss_ensemble", "autoencoder")
 
 
 class Trainer:
     def __init__(self, cfg: ExperimentConfig, device=None, max_synth: Optional[int] = None,
-                 dataset: Optional[DeviceDataset] = None):
+                 dataset: Optional[DeviceDataset] = None,
+                 logger: Optional[MetricsLogger] = None):
         """``dataset``: an already staged dataset to train on (on ``device``);
-        by default the config's mixture is built and staged."""
+        by default the config's mixture is built and staged.  ``logger``: the
+        console and loss series (`loop.py:152-158`); by default one at the
+        config's ``log_every``."""
         # under a process group: the rank's card (or the CPU with gloo)
         self.device = resolve_device(rank_device(device))
         self.cfg = cfg
@@ -141,8 +163,8 @@ class Trainer:
         self.engine = StrainerEngine(cfg, self.disc, self.dataset, feature_fn=feature_fn,
                                      score_batch=cfg.strain.score_batch)
         self.scfg = step_config_from(cfg)
-        self.logger = MetricsLogger(log_every=cfg.train.log_every,
-                                    style="mnist" if cfg.model.arch == "mlp" else "dcgan")
+        self.logger = logger if logger is not None else MetricsLogger(
+            log_every=cfg.train.log_every, style="mnist" if cfg.model.arch == "mlp" else "dcgan")
         # one explicit generator for the epoch permutations and the noise
         self.rng = torch.Generator(device=self.device).manual_seed(cfg.train.seed)
         # the fake pool's permutations (its build and each step's rows), from
@@ -171,26 +193,50 @@ class Trainer:
         self.kernel_launches: Dict[str, int] = {}
         self._iters = 0  # global training iterations so far
         self._stats = None  # (n_active, true-positive removals, n_contaminants)
-        # chunk executors by capture key, their shared graph pool and counts
+        self._last_steps = None  # the last epoch's full steps: a deferred epoch's guess
+        self._pinned: Dict[tuple, torch.Tensor] = {}  # the stats' host buffers
+        # chunk executors by capture key (the gated chunks and gated tails of
+        # the deferred path apart), their shared graph pool and counts
         self._executors: Dict[tuple, ChunkedStep] = {}
+        self._gated: Dict[tuple, GatedChunkedStep] = {}
+        self._gated_tails: Dict[tuple, GatedChunkedStep] = {}
         self._graph_pool = None
-        self.graph_stats = dict(captures=0, replays=0, capture_s=[], instantiate_s=[])
+        self.graph_stats = dict(captures=0, replays=0, gated_replays=0, conditional_nodes=0,
+                                deferred_epochs=0, blocking_epochs=0, capture_s=[],
+                                instantiate_s=[])
         for opt in (self.opt_g, self.opt_d):
             # a loaded state rebinds the tensors a captured graph reads
             opt.register_load_state_dict_post_hook(lambda _opt: self.drop_captures())
 
     def drop_captures(self) -> None:
-        """Forget every chunk executor and its graph (and its warm-up)."""
+        """Forget every chunk executor and its graph (and its warm-up), and
+        their memory pool: the next capture starts a new one."""
         self._executors.clear()
+        self._gated.clear()
+        self._gated_tails.clear()
+        self._graph_pool = None
 
-    def _add_executor(self, key: tuple, like: Dict) -> None:
-        chunk, mask_on, d_train, stem_share, _ = key
+    def _executor(self, cls, key: tuple, like: Dict, chunk: int, **kw):
+        _, mask_on, d_train, stem_share, _ = key
         if self.device.type == "cuda" and self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
-        self._executors[key] = ChunkedStep(
-            self.gen, self.disc, self.opt_g, self.opt_d, self.dataset, self.scfg, chunk, like,
-            mask_on=mask_on, d_train=d_train, stats=self.graph_stats, stem_share=stem_share,
-            graph_pool=self._graph_pool, fake_pool=self.fake_pool)
+        return cls(self.gen, self.disc, self.opt_g, self.opt_d, self.dataset, self.scfg, chunk,
+                   like, mask_on=mask_on, d_train=d_train, stats=self.graph_stats,
+                   stem_share=stem_share, graph_pool=self._graph_pool,
+                   fake_pool=self.fake_pool, **kw)
+
+    def _add_executor(self, key: tuple, like: Dict) -> None:
+        self._executors[key] = self._executor(ChunkedStep, key, like, key[0])
+
+    def _gated_executor(self, key: tuple, tail: bool = False) -> GatedChunkedStep:
+        """The gated chunk (or, with ``tail``, the gated partial tail) of a
+        warmed-up capture key; its metrics are shaped as the key's chunk's."""
+        cache = self._gated_tails if tail else self._gated
+        if key not in cache:
+            like = {k: v[0] for k, v in self._executors[key].out.items()}
+            cache[key] = self._executor(GatedChunkedStep, key, like, 1 if tail else key[0],
+                                        tail=tail)
+        return cache[key]
 
     def setup(self) -> None:
         """Pre-training strain (the z-score prefilter), then the fake pool of
@@ -207,28 +253,55 @@ class Trainer:
                                                  perm=self.pool_order(self.dataset.n))
             self.fake_pool = self.dataset.gather(self.fake_pool_rows)
 
-    def _fetch_epoch_stats(self, active: torch.Tensor):
-        """One host fetch; an overflow of the band path puts the engine on
-        ``BAND_COOLOFF_EVENTS`` strain events of f32 scoring (the overflow
-        pays bf16 bulk + full f32, so a persistently concentrated D must
-        not pay it every epoch)."""
+    def _dispatch_epoch_stats(self, active: torch.Tensor, with_mask: bool = False):
+        """Enqueue the packed epoch stats (active count, true-positive
+        removals, contaminants, the band path's overflow flag) and, with
+        ``with_mask``, the mask itself for copies to pinned host memory,
+        with an event after them; nothing waits (`loop.py:284-292`).  On the
+        deferred path this runs before the epoch's chunks are launched, so
+        ``_fetch_epoch_stats`` waits for the strain and the copies only."""
         contam = self.dataset.source_id != 0
         dropped = torch.logical_not(active)
         band = self.engine.last_band_stats
         overflow = band[1] if band is not None else torch.zeros((), device=self.device)
-        stats = [int(v) for v in torch.stack([
-            active.sum(), torch.logical_and(dropped, contam).sum(), contam.sum(),
-            overflow.to(torch.int64),
-        ]).tolist()]
+        outs = [torch.stack([active.sum(), torch.logical_and(dropped, contam).sum(),
+                             contam.sum(), overflow.to(torch.int64)])]
+        if with_mask:
+            outs.append(active)
+        if self.device.type != "cuda":
+            return outs, None
+        host = []
+        for t in outs:
+            # one pinned buffer per shape, reused: each fetch copies it out
+            # before the next dispatch
+            key = (tuple(t.shape), t.dtype)
+            if key not in self._pinned:
+                self._pinned[key] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.append(self._pinned[key].copy_(t, non_blocking=True))
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    def _fetch_epoch_stats(self, pending):
+        """Wait for ``_dispatch_epoch_stats``'s copies (`loop.py:294-309`);
+        returns (n_active, true-positive removals, n_contaminants) and the
+        mask on the host (None unless dispatched ``with_mask``).  An
+        overflow of the band path puts the engine on ``BAND_COOLOFF_EVENTS``
+        strain events of f32 scoring (the overflow pays bf16 bulk + full
+        f32, so a persistently concentrated D must not pay it every
+        epoch)."""
+        host, done = pending
+        if done is not None:
+            done.synchronize()
+        stats = [int(v) for v in host[0].tolist()]
         if stats[3] and self.engine.last_score_path == "band":
             self.engine.band_cooloff = BAND_COOLOFF_EVENTS
         self._stats = tuple(stats[:3])
-        return self._stats
+        return self._stats, (host[1].numpy().copy() if len(host) > 1 else None)
 
-    def _log_strain(self, epoch: int, active: torch.Tensor) -> None:
-        """One host fetch: the console line and the strain's precision and
-        recall against the contamination labels."""
-        n_active, strain_tp, n_contam = self._fetch_epoch_stats(active)
+    def _log_strain(self, epoch: int, n_active: int, strain_tp: int, n_contam: int) -> None:
+        """The console line and the strain's precision and recall against
+        the contamination labels."""
         removed = self.dataset.n - n_active
         self.logger.log_strain(epoch, removed, n_active)
         if removed and n_contam:
@@ -236,8 +309,35 @@ class Trainer:
                 epoch=epoch, removed=removed, precision=strain_tp / removed,
                 recall=strain_tp / n_contam))
 
+    def _warn_no_batches(self, epoch: int, n_active: int) -> None:
+        bs = self.cfg.data.batch_size
+        self.logger.stream.write(
+            f"[strainer] WARNING epoch {epoch}: 0 full batches ({n_active} active "
+            f"samples < batch_size {bs}) — no training this epoch\n")
+
+    def _step_counts(self, n_active: int):
+        """(steps, tail): the epoch's steps and the valid lanes of its
+        partial last step (0 with ``drop_last``)."""
+        bs = self.cfg.data.batch_size
+        if self.cfg.data.drop_last:
+            return n_active // bs, 0
+        # exact partial final batch (`#%basic.py:76`): the last step runs
+        # with ``tail`` valid lanes
+        return -(-n_active // bs), n_active % bs
+
+    def _step_capacity(self) -> int:
+        """The most steps a deferred epoch can have, from what the host
+        knows: the permanent base's size (`loop.py:566-572`), or the
+        dataset's for the strainers that pick from all of it."""
+        sub = self.engine._base_subset
+        n = (self.dataset.n if sub is None or self.cfg.strain.method in FULL_SET_STRAINERS
+             else int(sub.shape[0]))
+        return self._step_counts(n)[0]
+
     def epoch_indices(self, epoch: int, active: torch.Tensor, steps: int) -> torch.Tensor:
-        """(steps, batch_size) sample indices of ``epoch``."""
+        """(steps, batch_size) sample indices of ``epoch``.  One permutation
+        whatever ``steps`` is: the first rows of a longer draw are the rows
+        of a shorter one."""
         return epoch_batch_indices(active, steps, self.cfg.data.batch_size, generator=self.rng)
 
     def step_noise(self, epoch: int, i: int) -> torch.Tensor:
@@ -279,32 +379,22 @@ class Trainer:
             eng.last_batch_scores = eng.last_batch_mask = eng.last_batch_valid = None
         prev_active = self.engine.active
         active = self.engine.on_epoch_start(epoch)
-        if active is not prev_active:
-            self._log_strain(epoch, active)
-        elif self._stats is None:
-            self._fetch_epoch_stats(active)
-        n_active = self._stats[0]
-        self.mask_history.append(active.cpu().numpy())  # waits for the strain
-        strain_seconds = time.perf_counter() - t0
-
+        strain_event = self._stats is None or active is not prev_active
+        collect = self.logger.collect
+        sampling = bool(t.sample_every and collect)
+        chunk = max(1, t.steps_per_dispatch)
+        d_train = not self.engine.d_bn_eval
+        key = (chunk, gate, d_train, True, self.scfg.compute_dtype)
+        # the deferred-stats path (`loop.py:373-390`): a strain event of a
+        # chunked epoch without grids, once its capture key has had its
+        # warm-up step (decided here, before any capture)
+        deferred = (t.defer_epoch_stats and strain_event and chunk > 1 and not sampling
+                    and key in self._executors)
+        if strain_event:
+            self.graph_stats["deferred_epochs" if deferred else "blocking_epochs"] += 1
         lr_g = lr_at(t.lr_g, epoch, t)
         lr_d = lr_at(t.lr_d, epoch, t)
         bs = cfg.data.batch_size
-        if cfg.data.drop_last:
-            steps, tail = n_active // bs, 0
-        else:
-            # exact partial final batch (`#%basic.py:76`): the last step runs
-            # with ``tail`` valid lanes
-            steps, tail = -(-n_active // bs), n_active % bs
-        if steps == 0:
-            self.logger.stream.write(
-                f"[strainer] WARNING epoch {epoch}: 0 full batches ({n_active} active "
-                f"samples < batch_size {bs}) — no training this epoch\n")
-        idx = self.epoch_indices(epoch, active, steps)
-        d_train = not self.engine.d_bn_eval
-        sampling = bool(t.sample_every)
-        chunk = max(1, t.steps_per_dispatch)
-        key = (chunk, gate, d_train, True, self.scfg.compute_dtype)
         pooled = self.fake_pool is not None
         losses = []  # per-sample real losses of the epoch's steps, on the device
         # contamination counters of the in-step mask, summed on the device
@@ -312,66 +402,91 @@ class Trainer:
         metrics = None
         lanes = None
 
-        def run_one(i):
+        def account(m, it0, n, steps, stacked=True, valid=None):
+            """Log ``n`` of the epoch's ``steps`` from ``it0`` and add them to
+            its counters and history; ``m`` is a chunk's stacked metrics or,
+            with ``stacked=False``, one step's.  ``valid``: a partial tail's
+            lanes."""
             nonlocal metrics, lanes
-            # the global step's draws; the rank takes its lanes
-            ids, z, rows, drop = rank_inputs(
-                self.scfg, idx[i], self.step_noise(epoch, i),
-                self.step_pool_rows(epoch, i) if pooled else None, self.step_dropout(epoch, i))
-            x = normalize_u8(self.dataset.gather(ids), torch.float32)
-            lanes = tail if (tail and i == steps - 1) else None
-            metrics = train_step(
-                self.gen, self.disc, self.opt_g, self.opt_d, x,
-                self.dataset.source_id[ids], z, lr_g, lr_d, self.scfg, d_train=d_train,
-                lane_count=lanes, mask_on=gate, fake_pool=self.fake_pool,
-                pool_idx=rows, concat_on=concat_on, drop_masks=drop,
-            )
-            self.logger.log_step(epoch, t.epochs, i, steps, metrics)
-            if mask_on:
-                counters.add_(torch.stack([metrics["n_contam"], metrics["n_filtered_contam"]]))
-            losses.append(metrics["real_loss_per_sample"][:lanes])
-
-        def run_chunk(i, ex):
-            nonlocal metrics, lanes
-            z = torch.stack([self.step_noise(epoch, i + j) for j in range(chunk)])
-            rows = (torch.stack([self.step_pool_rows(epoch, i + j) for j in range(chunk)])
-                    if pooled else None)
-            drops = [self.step_dropout(epoch, i + j) for j in range(chunk)]
-            drop = [torch.stack(ms) for ms in zip(*drops)]
-            # a copy: the next chunk reuses the buffers
-            m = ex(idx[i:i + chunk], z, lr_g, lr_d, pool_idx=rows, concat_on=concat_on,
-                   drop=drop)
-            self.logger.log_chunk(epoch, t.epochs, i, steps, m, chunk)
+            if stacked:
+                self.logger.log_chunk(epoch, t.epochs, it0, steps, m, n)
+            else:
+                self.logger.log_step(epoch, t.epochs, it0, steps, m)
             if mask_on:
                 counters.add_(torch.stack([m["n_contam"].sum(), m["n_filtered_contam"].sum()]))
-            losses.append(m["real_loss_per_sample"].reshape(-1))
-            metrics, lanes = {k: v[-1] for k, v in m.items()}, None
+            if collect:
+                losses.append(m["real_loss_per_sample"].reshape(-1) if stacked
+                              else m["real_loss_per_sample"][:valid])
+            metrics = {k: v[n - 1] for k, v in m.items()} if stacked else m
+            lanes = valid
 
-        # segments end right after each step whose global iteration is a
-        # sample point (`#%basic.py:300-304`; `loop.py:527-561`): full chunks,
-        # then the remainder step by step
-        pos = 0
-        while pos < steps:
-            if sampling:
-                until = (-(self._iters + pos)) % t.sample_every
-                boundary, sample_here = min(pos + until + 1, steps), pos + until < steps
-            else:
-                boundary, sample_here = steps, False
-            # full chunks stop short of the partial tail step
-            limit = boundary - (1 if (tail and boundary == steps) else 0)
-            while chunk > 1 and pos + chunk <= limit:
-                if key not in self._executors:
-                    run_one(pos)  # the key's warm-up: a step of the run
-                    self._add_executor(key, metrics)
+        if deferred:
+            steps, strain_seconds = self._deferred_steps(
+                epoch, active, prev_active, key, lr_g, lr_d, concat_on, account, t0)
+        else:
+            if strain_event:
+                stats, _ = self._fetch_epoch_stats(self._dispatch_epoch_stats(active))
+                if active is not prev_active:
+                    self._log_strain(epoch, *stats)
+            n_active = self._stats[0]
+            if collect:
+                self.mask_history.append(active.cpu().numpy())  # waits for the strain
+            strain_seconds = time.perf_counter() - t0
+            steps, tail = self._step_counts(n_active)
+            self._last_steps = n_active // bs
+            if steps == 0:
+                self._warn_no_batches(epoch, n_active)
+            idx = self.epoch_indices(epoch, active, steps)
+
+            def run_one(i):
+                # the global step's draws; the rank takes its lanes
+                ids, z, rows, drop = rank_inputs(
+                    self.scfg, idx[i], self.step_noise(epoch, i),
+                    self.step_pool_rows(epoch, i) if pooled else None,
+                    self.step_dropout(epoch, i))
+                x = normalize_u8(self.dataset.gather(ids), torch.float32)
+                valid = tail if (tail and i == steps - 1) else None
+                m = train_step(
+                    self.gen, self.disc, self.opt_g, self.opt_d, x,
+                    self.dataset.source_id[ids], z, lr_g, lr_d, self.scfg, d_train=d_train,
+                    lane_count=valid, mask_on=gate, fake_pool=self.fake_pool,
+                    pool_idx=rows, concat_on=concat_on, drop_masks=drop,
+                )
+                account(m, i, 1, steps, stacked=False, valid=valid)
+
+            def run_chunk(i, ex):
+                z, rows, drop = self._stacked_draws(
+                    [self._step_draws(epoch, i + j, pooled) for j in range(chunk)])
+                # a copy: the next chunk reuses the buffers
+                account(ex(idx[i:i + chunk], z, lr_g, lr_d, pool_idx=rows,
+                           concat_on=concat_on, drop=drop), i, chunk, steps)
+
+            # segments end right after each step whose global iteration is a
+            # sample point (`#%basic.py:300-304`; `loop.py:527-561`): full
+            # chunks, then the remainder step by step
+            pos = 0
+            while pos < steps:
+                if sampling:
+                    until = (-(self._iters + pos)) % t.sample_every
+                    boundary, sample_here = min(pos + until + 1, steps), pos + until < steps
+                else:
+                    boundary, sample_here = steps, False
+                # full chunks stop short of the partial tail step
+                limit = boundary - (1 if (tail and boundary == steps) else 0)
+                while chunk > 1 and pos + chunk <= limit:
+                    if key not in self._executors:
+                        run_one(pos)  # the key's warm-up: a step of the run
+                        self._add_executor(key, metrics)
+                        pos += 1
+                        continue
+                    run_chunk(pos, self._executors[key])
+                    pos += chunk
+                while pos < boundary:
+                    run_one(pos)
                     pos += 1
-                    continue
-                run_chunk(pos, self._executors[key])
-                pos += chunk
-            while pos < boundary:
-                run_one(pos)
-                pos += 1
-            if sample_here:
-                self.img_list.append(self.sample())
+                if sample_here:
+                    self.img_list.append(self.sample())
+        n_active = self._stats[0]
         self._iters += steps
         # and after the last iteration of the last epoch, unless that one
         # was a sample point already (`#%basic.py:301`, an ``or``)
@@ -414,6 +529,112 @@ class Trainer:
                       seconds=time.perf_counter() - t0, strain_seconds=strain_seconds)
         self.epoch_results.append(result)
         return result
+
+    def _step_draws(self, epoch: int, i: int, pooled: bool):
+        """Step ``i``'s draws: noise, pool rows (None without a pool) and
+        keep masks."""
+        return (self.step_noise(epoch, i),
+                self.step_pool_rows(epoch, i) if pooled else None,
+                self.step_dropout(epoch, i))
+
+    @staticmethod
+    def _stacked_draws(draws):
+        """Per-step draws stacked along a leading step axis, as a chunk
+        takes them."""
+        zs, rows, drops = zip(*draws)
+        return (torch.stack(zs), None if rows[0] is None else torch.stack(rows),
+                [torch.stack(ms) for ms in zip(*drops)])
+
+    def _generator_states(self):
+        return [g.get_state() for g in (self.rng, self.pool_rng, self.drop_rng)]
+
+    def _deferred_steps(self, epoch, active, prev_active, key, lr_g, lr_d, concat_on,
+                        account, t0):
+        """The deferred-stats epoch (`loop.py:563-704`): the stats are
+        dispatched first, then the chunks of the guessed step count
+        (the previous epoch's, or the capacity), each gated on the device
+        by the live count; the stats are fetched while they run; catch-up
+        chunks follow if the guess fell short, then the gated partial tail.
+        Only the live rows are accounted.  Returns (steps, strain_seconds).
+
+        Draws: every step's noise, pool rows and keep masks are drawn in the
+        per-step order, as the blocking path draws them, and the
+        generators' states are kept at each chunk's first step; once the
+        count is known, a dispatch past it sets them back to the kept state
+        at or below the count and draws again up to it, so they stand after
+        exactly the live steps' draws: epoch ``e + 1`` draws the same
+        whichever path epoch ``e`` took."""
+        chunk, bs = key[0], self.cfg.data.batch_size
+        pooled = self.fake_pool is not None
+        max_steps = self._step_capacity()
+        rows = max(1, -(-max_steps // chunk)) * chunk
+        pending = self._dispatch_epoch_stats(active, with_mask=self.logger.collect)
+        idx = self.epoch_indices(epoch, active, rows)
+        n_valid, tail_dev = device_full_and_tail(active, bs).unbind()
+        gated = self._gated_executor(key)
+        draws, kept = [], {}
+
+        def draw_upto(n):
+            while len(draws) < n:
+                if len(draws) % chunk == 0:
+                    kept[len(draws)] = self._generator_states()
+                draws.append(self._step_draws(epoch, len(draws), pooled))
+
+        outs = []
+
+        def dispatch(c):
+            draw_upto((c + 1) * chunk)
+            z, rows_c, drop = self._stacked_draws(draws[c * chunk:(c + 1) * chunk])
+            outs.append(gated(idx[c * chunk:(c + 1) * chunk], z, lr_g, lr_d, c * chunk,
+                              n_valid, pool_idx=rows_c, concat_on=concat_on, drop=drop))
+
+        guess = self._last_steps if self._last_steps is not None else max_steps
+        guess = min(max(guess, 1), max_steps)
+        for c in range(-(-guess // chunk)):
+            dispatch(c)
+        # the stats' wait rides under the chunks' device time
+        stats, mask = self._fetch_epoch_stats(pending)
+        strain_seconds = time.perf_counter() - t0
+        n_active = stats[0]
+        if mask is not None:
+            self.mask_history.append(mask)
+        if active is not prev_active:
+            self._log_strain(epoch, *stats)
+        full = n_active // bs
+        steps, tail = self._step_counts(n_active)
+        if steps == 0:
+            self._warn_no_batches(epoch, n_active)
+        self._last_steps = full
+        if steps > rows:
+            raise RuntimeError(f"epoch {epoch}: {n_active} active samples exceed the "
+                               f"deferred path's capacity of {rows} steps")
+        while len(outs) * chunk < full:  # catch-up: the guess fell short
+            dispatch(len(outs))
+        m_tail = None
+        if tail:
+            # the gated partial tail, after every live full chunk: its index
+            # row ``n_valid`` taken on the device, its draws step ``full``'s
+            draw_upto(steps)
+            z, rows_t, drop = self._stacked_draws(draws[full:full + 1])
+            row = torch.clamp(n_valid, max=rows - 1).reshape(1)
+            m_tail = self._gated_executor(key, tail=True)(
+                idx.index_select(0, row), z, lr_g, lr_d, 0, tail_dev, pool_idx=rows_t,
+                concat_on=concat_on, drop=drop)
+        if steps < len(draws):  # the dispatches drew past the live steps
+            at = steps - steps % chunk
+            for g, st in zip((self.rng, self.pool_rng, self.drop_rng), kept[at]):
+                g.set_state(st)
+            for i in range(at, steps):
+                self._step_draws(epoch, i, pooled)
+        for c, m in enumerate(outs):
+            v = min(max(full - c * chunk, 0), chunk)
+            if v == 0:
+                break
+            account({k: val[:v] for k, val in m.items()}, c * chunk, v, steps)
+        if m_tail is not None:
+            account({k: val[0] for k, val in m_tail.items()}, full, 1, steps, stacked=False,
+                    valid=tail)
+        return steps, strain_seconds
 
     def run(self, epochs: Optional[int] = None) -> List[Dict]:
         before = launch_counts()

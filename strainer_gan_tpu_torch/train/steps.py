@@ -61,6 +61,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ..data.pipeline import normalize_u8
+from ..kernels.gated_graph import GatedGraph
 from ..ops import losses as L
 from ..ops import stats as S
 from ..parallel import mesh as M
@@ -449,19 +450,25 @@ class ChunkedStep:
         self.graph = None
         self._ptrs = None
 
-    def _body(self) -> None:
+    def _step(self, j: int, lane_count: Optional[torch.Tensor] = None) -> None:
+        """Step ``j`` of the chunk from the static buffers, its metrics into
+        row ``j`` of ``out``."""
         ds = self.dataset
+        # the rank's lanes of the step (all of them without a group)
+        ids, z, pool_idx, drop = rank_inputs(self.scfg, self.idx[j], self.z[j],
+                                             self.pool_idx[j], [m[j] for m in self.drop])
+        m = step_body(self.gen, self.disc, self.opt_g, self.opt_d,
+                      normalize_u8(ds.gather(ids), torch.float32), ds.source_id[ids],
+                      z, self.scfg, d_train=self.d_train, lane_count=lane_count,
+                      mask_on=self.mask_on, stem_share=self.stem_share,
+                      fake_pool=self.fake_pool, pool_idx=pool_idx,
+                      concat_on=self.concat_on, drop_masks=drop)
+        for k, v in m.items():
+            self.out[k][j].copy_(v)
+
+    def _body(self) -> None:
         for j in range(self.chunk):
-            # the rank's lanes of the step (all of them without a group)
-            ids, z, pool_idx, drop = rank_inputs(self.scfg, self.idx[j], self.z[j],
-                                                 self.pool_idx[j], [m[j] for m in self.drop])
-            m = step_body(self.gen, self.disc, self.opt_g, self.opt_d,
-                          normalize_u8(ds.gather(ids), torch.float32), ds.source_id[ids],
-                          z, self.scfg, d_train=self.d_train, mask_on=self.mask_on,
-                          stem_share=self.stem_share, fake_pool=self.fake_pool,
-                          pool_idx=pool_idx, concat_on=self.concat_on, drop_masks=drop)
-            for k, v in m.items():
-                self.out[k][j].copy_(v)
+            self._step(j)
 
     def _pointers(self):
         ts = [*self.gen.parameters(), *self.gen.buffers(), *self.disc.parameters(),
@@ -496,6 +503,30 @@ class ChunkedStep:
         ``pool_idx`` (chunk, batch), gated by ``concat_on``; with dropout:
         D's keep masks ``drop``, (chunk,) + ``drop_shape`` per hidden width);
         returns the stacked metrics."""
+        self._fill(idx, z, lr_g, lr_d, pool_idx, concat_on, drop)
+        return self._run()
+
+    def _run(self) -> Dict[str, torch.Tensor]:
+        """The chunk on the filled buffers: captured at the first call and
+        launched (on the card), or run eagerly (on the CPU); a copy of
+        ``out``."""
+        if self.device.type == "cuda":
+            if self.graph is None:
+                self._capture()
+            else:
+                self._check_pointers()
+            self._launch()
+            self.stats["replays"] += 1
+        else:
+            self._body()
+        return {k: v.clone() for k, v in self.out.items()}
+
+    def _launch(self) -> None:
+        self.graph.replay()
+
+    def _fill(self, idx, z, lr_g, lr_d, pool_idx, concat_on, drop) -> None:
+        """The caller's inputs into the static buffers, the rates into the
+        optimizers' rate tensors."""
         self.idx.copy_(idx)
         self.z.copy_(z)
         for buf, m in zip(self.drop, drop or ()):
@@ -507,15 +538,102 @@ class ChunkedStep:
             self.concat_on.fill_(float(concat_on))
         set_lr(self.opt_g, lr_g)
         set_lr(self.opt_d, lr_d)
-        if self.device.type == "cuda":
-            if self.graph is None:
-                self._capture()
-            elif self._pointers() != self._ptrs:
-                raise RuntimeError(
-                    "a tensor this CUDA graph reads was rebound after its capture "
-                    "(an optimizer or module state was loaded); drop the captures first")
-            self.graph.replay()
-            self.stats["replays"] += 1
-        else:
-            self._body()
-        return {k: v.clone() for k, v in self.out.items()}
+
+    def _check_pointers(self) -> None:
+        if self._pointers() != self._ptrs:
+            raise RuntimeError(
+                "a tensor this CUDA graph reads was rebound after its capture "
+                "(an optimizer or module state was loaded); drop the captures first")
+
+
+class GatedChunkedStep(ChunkedStep):
+    """A chunk whose live steps are decided on the device (counterpart of
+    `strainer_gan_tpu/train/steps.py:476-572`, ``make_gated_chunked_train_step``;
+    with ``tail=True``, of `steps.py:575-634`, ``make_gated_tail_step``).
+
+    Two more static 0-d int64 buffers: ``c0``, the chunk's first global
+    step, and ``bound``, the epoch's live step count (``n_valid``); step
+    ``j`` runs only if ``c0 + j < bound``.  A dead step leaves every
+    parameter, buffer, Adam moment and Adam step count as it was, and its
+    row of ``out`` keeps whatever an earlier call wrote there: a caller
+    reads the live rows only.
+
+    On the card each step is captured as its own CUDA graph (the same
+    ``step_body``, so a live step is bit for bit the ungated one) and
+    ``kernels.gated_graph.GatedGraph`` puts each under an IF node whose
+    predicate a one-thread kernel computes inside the graph from the
+    buffers, all under one outer IF on ``c0 < bound``: a wholly dead chunk
+    costs one predicate kernel.  No host read decides anything; a capture,
+    build or launch that fails raises.  On the CPU the same steps run
+    eagerly and each predicate is read on the host.
+
+    ``tail=True`` is the gated partial tail: one step (``chunk`` 1) with
+    ``c0`` 0 and ``bound`` the tail's valid-lane count, which is also the
+    step's ``lane_count`` (a device tensor: no host read), so it runs only
+    if the tail has lanes.
+    """
+
+    def __init__(self, *args, tail: bool = False, **kw):
+        super().__init__(*args, **kw)
+        if tail and self.chunk != 1:
+            raise ValueError("the gated tail is one step")
+        self.tail = tail
+        self.c0 = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.bound = torch.zeros((), dtype=torch.int64, device=self.device)
+
+    def _lanes(self) -> Optional[torch.Tensor]:
+        return self.bound if self.tail else None
+
+    def _body(self) -> None:
+        live = int(self.bound) - int(self.c0)  # the CPU path: a host read
+        for j in range(min(live, self.chunk)):
+            self._step(j, self._lanes())
+
+    def _capture(self) -> None:
+        t0 = time.perf_counter()
+        graphs = []
+        # one synchronisation and one collection for all the steps'
+        # captures (``capturing`` does both for each), then the collector
+        # held off; each graph kept un-instantiated: only its clone in the
+        # gated graph runs
+        gc.collect()
+        enabled = gc.isenabled()
+        gc.disable()
+        torch.cuda.synchronize(self.device)
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(self.device)):
+                for j in range(self.chunk):
+                    g = torch.cuda.CUDAGraph(keep_graph=True)
+                    g.capture_begin(pool=self.graph_pool)
+                    try:
+                        self._step(j, self._lanes())
+                    finally:
+                        g.capture_end()
+                    graphs.append(g)
+        finally:
+            if enabled:
+                gc.enable()
+        t1 = time.perf_counter()
+        self.graph = GatedGraph(graphs, self.c0, self.bound, outer=not self.tail)
+        self.stats["instantiate_s"].append(time.perf_counter() - t1)
+        self.stats["capture_s"].append(t1 - t0)
+        self.stats["captures"] += 1
+        self.stats["conditional_nodes"] += self.graph.conditionals
+        self._ptrs = self._pointers()
+
+    def __call__(self, idx: torch.Tensor, z: torch.Tensor, lr_g: float, lr_d: float,
+                 c0: int, bound: torch.Tensor, pool_idx: Optional[torch.Tensor] = None,
+                 concat_on: bool = False,
+                 drop: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        """``ChunkedStep.__call__`` with the chunk's first global step ``c0``
+        (a host int) and the live count ``bound`` (a 0-d device tensor,
+        copied on the device); returns the stacked metrics, live rows
+        first."""
+        self._fill(idx, z, lr_g, lr_d, pool_idx, concat_on, drop)
+        self.c0.fill_(c0)
+        self.bound.copy_(bound)
+        return self._run()
+
+    def _launch(self) -> None:
+        self.graph.launch()
+        self.stats["gated_replays"] += 1

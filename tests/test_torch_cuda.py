@@ -707,6 +707,68 @@ def test_capture_holds_the_collector_off(cuda_device, monkeypatch):
     assert tr.graph_stats["captures"] == 1 and tr.graph_stats["replays"] > 0
 
 
+def _deferred_cfg(defer):
+    """A narrow ``final`` (tests/test_torch_deferred.py's schedule): strains
+    from epoch 1 keeping about 50, 10 and 50 %, chunks of 4, no grids;
+    epochs 2 (an overshooting guess) and 3 (a catch-up) deferred."""
+    import dataclasses
+
+    cfg = _graph_cfg("final", 4, epochs=4, sample_every=0, defer_epoch_stats=defer)
+    return cfg.replace(strain=dataclasses.replace(
+        cfg.strain, start_epoch=1, score_batch=64,
+        clean_ratio_schedule=((0, 1.0), (1, 0.5), (2, 0.9), (3, 0.5))))
+
+
+@pytest.mark.cuda
+def test_deferred_final_on_the_card(cuda_device):
+    """The deferred epochs' gated chunks (each step under a CUDA graph IF
+    node) and gated tails, bit-equal to the blocking run: parameters,
+    BatchNorm buffers, Adam state, losses, per-sample history, masks and
+    console text."""
+    runs, ds = {}, None
+    for defer in (True, False):
+        tr = _graph_trainer(_deferred_cfg(defer), dataset=ds)
+        ds = tr.dataset
+        for e in range(4):
+            tr.run_epoch(e)
+        runs[defer] = tr
+    d, b = runs[True], runs[False]
+    _assert_bit_equal(d, b)
+    assert d.logger.stream.getvalue() == b.logger.stream.getvalue()
+    assert d.logger.G_losses == b.logger.G_losses
+    assert all(np.array_equal(x, y) for x, y in zip(d.epoch_loss_history, b.epoch_loss_history))
+    assert all(np.array_equal(x, y) for x, y in zip(d.mask_history, b.mask_history))
+    gs = d.graph_stats
+    assert gs["deferred_epochs"] == 2 and b.graph_stats["deferred_epochs"] == 0
+    assert gs["conditional_nodes"] > 0 and gs["gated_replays"] > 0
+    assert d.epoch_results[2]["steps"] < d.epoch_results[1]["steps"]
+
+
+@pytest.mark.cuda
+def test_failed_gated_capture_raises(cuda_device, monkeypatch):
+    """A gated step that reads a value back to the host cannot be captured:
+    the deferred epoch raises, and does not run as a blocking epoch."""
+    from strainer_gan_tpu_torch.train import steps as ST
+
+    tr = _graph_trainer(_deferred_cfg(True))
+    for e in range(2):
+        tr.run_epoch(e)
+    body = ST.step_body
+
+    def reads_back(*args, **kwargs):
+        m = body(*args, **kwargs)
+        float(m["errD"])  # a host read: illegal while a stream is capturing
+        return m
+
+    monkeypatch.setattr(ST, "step_body", reads_back)
+    with pytest.raises(Exception):
+        tr.run_epoch(2)
+    gs = tr.graph_stats
+    assert gs["deferred_epochs"] == 1 and gs["blocking_epochs"] == 2
+    assert gs["conditional_nodes"] == 0 and gs["gated_replays"] == 0
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_failed_capture_raises(cuda_device, monkeypatch):
     """A step that reads a value back to the host cannot be captured: the

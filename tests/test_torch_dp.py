@@ -25,6 +25,9 @@ cannot share.
   equal.
 * The loss pass: each rank scores its block and the gathered vectors are
   equal across ranks and to the unsharded pass, bit for bit.
+* The deferred-stats path under the ranks: a tiny ``final`` whose strain
+  epochs 1 and 2 are deferred, bit-equal to the same run blocking, on
+  every rank, with no group, one rank and two.
 
 Every spawned rank is joined with a 120 s limit and every collective times
 out after 60 s, so a hang fails one test instead of the suite.
@@ -233,3 +236,27 @@ def test_sharded_loss_pass_equal_across_ranks(runs):
 def test_batch_not_divisible(runs):
     r0, r1 = runs["two"]
     assert r0["divisible"] == r1["divisible"] == "batch_size 15 not divisible by dp=2"
+
+
+def _same(a, b):
+    assert a.keys() == b.keys()
+    for k, v in a.items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(v, b[k]), k
+        elif k in ("masks", "history"):
+            assert len(v) == len(b[k]) and all(np.array_equal(x, y) for x, y in zip(v, b[k])), k
+        elif k != "paths":
+            assert v == b[k], k
+
+
+@pytest.mark.parametrize("world", ["plain", "one", "two"])
+def test_deferred_bit_equal_to_blocking(runs, world):
+    ranks = [runs["plain"]] if world == "plain" else runs[world]
+    for r in ranks:
+        d, b = r["deferred"][True], r["deferred"][False]
+        assert d["paths"] == (2, 1) and b["paths"] == (0, 3)
+        _same(d, b)
+        steps = [s for s, _ in d["results"]]
+        assert steps[1] < min(steps[0], steps[2]) and all(a % 8 for _, a in d["results"])
+    for r in ranks[1:]:
+        _same(r["deferred"][True], ranks[0]["deferred"][True])

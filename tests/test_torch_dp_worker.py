@@ -10,7 +10,10 @@ rank computed to ``out_<tag>_<rank>.pt``:
 * ``tail``: the same on a partial tail of ``TAIL`` valid lanes, which
   leaves every lane of rank 1 (of 2) padding;
 * ``score``: the eval-mode D-loss pass over a small dataset;
-* ``divisible``: the Trainer's error for a batch the ranks cannot share.
+* ``divisible``: the Trainer's error for a batch the ranks cannot share;
+* ``deferred``: a tiny ``final`` Trainer for three strain epochs (a
+  shrinking count, then a growing one, each with a partial tail), with
+  ``defer_epoch_stats`` on and off (``deferred_snapshot``).
 
 ``run_cli_rank`` runs the command line as one rank of a launcher's group
 (tests/test_torch_dp_cli.py); ``card_rank_runs`` trains a narrow
@@ -92,6 +95,50 @@ def run_cases(inputs):
         out["divisible"] = ""
     except ValueError as e:
         out["divisible"] = str(e)
+    out["deferred"] = {defer: deferred_snapshot(defer) for defer in (True, False)}
+    return out
+
+
+def deferred_cfg(defer: bool):
+    """``final`` at batch 8, its strain from epoch 0 keeping about 50 %,
+    10 % and 50 % of the samples (its ratio inversion), chunks of 4."""
+    from strainer_gan_tpu_torch import get_preset
+
+    cfg = tiny(get_preset("final"), batch_size=8)
+    return cfg.replace(
+        train=dataclasses.replace(cfg.train, epochs=3, log_every=2, sample_every=0,
+                                  steps_per_dispatch=4, defer_epoch_stats=defer),
+        strain=dataclasses.replace(cfg.strain, start_epoch=0, prefilter=False,
+                                   score_precision="f32", score_batch=32,
+                                   clean_ratio_schedule=((0, 0.5), (1, 0.9), (2, 0.5))))
+
+
+def deferred_snapshot(defer: bool) -> dict:
+    """Run ``deferred_cfg(defer)`` on 100 seeded images on the CPU and
+    return what a bit-for-bit comparison reads."""
+    import io
+
+    from strainer_gan_tpu_torch.data import DeviceDataset, Mixture
+    from strainer_gan_tpu_torch.obs.metrics import MetricsLogger
+    from strainer_gan_tpu_torch.train.loop import Trainer
+
+    rng = np.random.default_rng(11)
+    n = 100
+    mix = Mixture(rng.integers(0, 256, (n, 64, 64, 3)).astype(np.uint8),
+                  (rng.random(n) < 0.2).astype(np.int32), np.zeros(n, np.int64))
+    tr = Trainer(deferred_cfg(defer), device="cpu", dataset=DeviceDataset(mix, "cpu"),
+                 logger=MetricsLogger(log_every=2, stream=io.StringIO()))
+    tr.run()
+    out = dict(text=tr.logger.stream.getvalue(), G=tr.logger.G_losses, masks=tr.mask_history,
+               history=tr.epoch_loss_history,
+               results=[(r["steps"], r["active"]) for r in tr.epoch_results],
+               paths=(tr.graph_stats["deferred_epochs"], tr.graph_stats["blocking_epochs"]))
+    for name in ("gen", "disc"):
+        out.update({f"{name}.{k}": v.clone() for k, v in getattr(tr, name).state_dict().items()})
+    for name in ("opt_g", "opt_d"):
+        st = getattr(tr, name).state_dict()["state"]
+        out.update({f"{name}.{i}.{k}": torch.as_tensor(v).clone()
+                    for i, s in st.items() for k, v in s.items()})
     return out
 
 
