@@ -110,7 +110,7 @@ script exits non-zero without printing its result line:
    joins an NCCL group and the Trainer takes the rank path: its BatchNorm
    sums, loss denominators, gathered scores, gradient buckets and metrics
    go through NCCL collectives, recorded into the chunked executor's CUDA
-   graphs.  Started after phase 5, it trains, beside phases 6-9 (whose
+   graphs.  Started before phase 5, it trains, beside phases 5-9 (whose
    seconds therefore include its load), ``batch_mask`` gated from epoch 1
    for 3 epochs (``--max-synth 4096``, a config JSON: the chunked phase's
    configuration) and ``zscore_loss`` as phase 9 runs it (the K2 prefilter, then the epoch-3 loss strain
@@ -122,7 +122,22 @@ script exits non-zero without printing its result line:
    there too, its gated chunks' conditional nodes around NCCL collectives.
    Prints the collectives, K1/K2a/K2b's
    launches on the rank path, and the replayed masked step's ms with and
-   without the collectives, each timed alone on the card.
+   without the collectives, each timed alone on the card.  Multi-host
+   staging: the child trains ``batch_mask`` again from its configuration
+   on a copy of its images staged by ``DeviceDataset.from_rank_local`` (in
+   a group of one rank the shard is every row): each step's lanes come in
+   through the exchange (a reduce-scatter recorded into the graphs) and
+   its strain event blocks; it must be bit-equal to the child's replicated
+   run, and the replayed masked step is timed on both datasets with the
+   exchange's bytes a step.  ``zscore_loss``'s prefilter and loss strain
+   are made again by fresh engines with its trained D on its dataset and
+   on such a copy (the passes read the rank's block, the base subset's
+   rows come through the exchange): bit-equal, K1/K2a/K2b's launches on
+   the sharded path printed.  The dp x tp helpers: one ``basic`` step
+   at full width (batch 128, bf16) on a 1 x 1 grid through
+   ``put_state_tp`` in the child must be bit-equal to the same seeded
+   step with no group in this process; both are timed over 10 eager
+   steps.
 11. in_batch_recycle: through the command line with ``--epochs 4
    --max-synth 4500`` across its gate epoch (3): the reals the in-step keep
    drops replace fakes in D's fake batch; the same run at
@@ -227,7 +242,8 @@ Deviations from the presets, each for a reason:
   steps, so that the epoch holds a chunk): the suite needs a trained G,
   not a long run.
 - dp: world size 1 (the machine has one card); ``batch_mask`` and
-  ``zscore_loss`` as their other phases cut them.
+  ``zscore_loss`` as their other phases cut them, each run twice there
+  (replicated, then sample-sharded); the tp grid 1 x 1, one step compared.
 
 The second-to-last lines are one JSON object of per-kernel results and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -2675,11 +2691,118 @@ def masked_replay_ms(torch, tr) -> float:
     return replay_ms(torch, tr._executors[key], idx, z, cfg.train.lr_d)
 
 
+def sharded_run(torch, np, tr):
+    """``tr``'s run again, from the same configuration, on a copy of its
+    images staged by ``DeviceDataset.from_rank_local`` (in a group of one
+    rank, the rank's shard is every row): the step's lanes, the scoring
+    passes' blocks and the contamination counts go the sample-sharded way,
+    and every strain event blocks."""
+    from strainer_gan_tpu_torch.data import DeviceDataset, Mixture
+    from strainer_gan_tpu_torch.train.loop import Trainer
+
+    ds = tr.dataset
+    local = Mixture(ds.images.cpu().numpy(), ds.source_id.cpu().numpy(),
+                    np.zeros((ds.n,), np.int64))
+    sh = Trainer(tr.cfg, dataset=DeviceDataset.from_rank_local(local, ds.n))
+    check(sh.dataset.sharded, "the dataset is not sample-sharded")
+    sh.logger.stream = io.StringIO()
+    sh.setup()
+    for e in range(tr.cfg.train.epochs):
+        sh.run_epoch(e)
+    torch.cuda.synchronize()
+    return sh
+
+
+def sharded_strain(torch, np, tr) -> dict:
+    """``tr``'s prefilter and its first loss strain (``start_epoch``) made
+    again by fresh StrainerEngines with ``tr``'s trained D, on ``tr``'s
+    dataset and on a copy staged by ``from_rank_local``: there the feature
+    and D-loss passes read the rank's block and the base subset's rows come
+    in through the exchange.  The base, the mask, the threshold and the
+    scores must be bit-equal; returns the sharded engine's kernel
+    launches and the base and mask sizes."""
+    from strainer_gan_tpu_torch import kernels
+    from strainer_gan_tpu_torch.data import DeviceDataset, Mixture
+    from strainer_gan_tpu_torch.strain.engine import StrainerEngine
+
+    ds = tr.dataset
+    local = Mixture(ds.images.cpu().numpy(), ds.source_id.cpu().numpy(),
+                    np.zeros((ds.n,), np.int64))
+    out = {}
+    for name, d in (("replicated", ds), ("sharded", DeviceDataset.from_rank_local(local, ds.n))):
+        kernels.reset_launch_counts()
+        eng = StrainerEngine(tr.cfg, tr.disc, d, feature_fn=tr.engine.feature_fn,
+                             score_batch=tr.cfg.strain.score_batch)
+        base = eng.prefilter().clone()
+        mask = eng.on_epoch_start(tr.cfg.strain.start_epoch)
+        torch.cuda.synchronize()
+        out[name] = dict(base=base.cpu(), mask=mask.cpu(), scores=eng.last_scores.cpu(),
+                         thr=eng.last_threshold.cpu(), launches=kernels.launch_counts(),
+                         path=eng.last_score_path)
+    a, b = out["sharded"], out["replicated"]
+    for k in ("base", "mask", "scores", "thr"):
+        check(torch.equal(a[k], b[k]), f"sharded strain: {k} differs from the replicated one")
+    check(a["path"] == b["path"] and not a["mask"].all() and a["mask"].sum() < a["base"].sum(),
+          f"sharded strain: path {a['path']}, kept {int(a['mask'].sum())} of "
+          f"{int(a['base'].sum())}")
+    return dict(launches=a["launches"], base=int(a["base"].sum()), kept=int(a["mask"].sum()),
+                n=ds.n, path=a["path"])
+
+
+def tp_step(torch, grid: bool, steps: int = 10) -> dict:
+    """``basic`` at full width (nz=100, ngf=ndf=64, batch 128, bf16 as
+    shipped), seeded weights, images and noise: one step on a 1 x 1 dp x tp
+    grid through ``put_state_tp`` (``grid``; under the dp child's group) or
+    with no grid, its metrics and state; then the ms of ``steps`` more
+    steps, synchronised."""
+    from strainer_gan_tpu_torch import get_preset
+    from strainer_gan_tpu_torch.data import normalize_u8
+    from strainer_gan_tpu_torch.models import build_models
+    from strainer_gan_tpu_torch.parallel import mesh as M
+    from strainer_gan_tpu_torch.train.state import make_optimizers
+    from strainer_gan_tpu_torch.train.steps import step_config_from, train_step
+
+    cfg = get_preset("basic")
+    gen, disc = (m.cuda() for m in build_models(cfg.model, seed=cfg.train.seed))
+    opt_g, opt_d = make_optimizers(cfg, gen, disc)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    bs, lr = cfg.data.batch_size, cfg.train.lr_d
+    x = normalize_u8(torch.randint(0, 256, (bs, 64, 64, 3), generator=g, device="cuda",
+                                   dtype=torch.uint8))
+    src = torch.zeros((bs,), dtype=torch.int32, device="cuda")
+    zs = torch.randn((steps + 1, bs, cfg.model.nz), generator=g, device="cuda")
+    scfg = step_config_from(cfg)
+    ctx = contextlib.nullcontext()
+    if grid:
+        ctx = M.make_mesh_2d(1, 1)
+        M.put_state_tp(ctx, [gen, disc], [opt_g, opt_d])
+
+    def one(i):
+        with ctx:
+            return train_step(gen, disc, opt_g, opt_d, x, src, zs[i], lr, lr, scfg)
+
+    m = one(0)
+    torch.cuda.synchronize()
+    out = dict(metrics={k: v.cpu() for k, v in m.items()}, state={})
+    for name, obj in (("gen", gen), ("disc", disc), ("opt_g", opt_g), ("opt_d", opt_d)):
+        sd = obj.state_dict()
+        if name.startswith("opt"):
+            sd = {f"{i}.{k}": v for i, st in sd["state"].items() for k, v in st.items()}
+        out["state"].update({f"{name}.{k}": torch.as_tensor(v).cpu() for k, v in sd.items()})
+    t0 = time.perf_counter()
+    for i in range(1, steps + 1):
+        one(i)
+    torch.cuda.synchronize()
+    out["ms"] = (time.perf_counter() - t0) / steps * 1e3
+    return out
+
+
 def dp_child(out_dir: str) -> int:
     """The dp phase's child: under the launcher's environment of one rank,
     ``--dp 1`` joins an NCCL group on the card, and each run goes the rank
     path; saves what the parent compares."""
     t0 = time.perf_counter()
+    import numpy as np
     import torch
     import torch.distributed as dist
 
@@ -2687,7 +2810,8 @@ def dp_child(out_dir: str) -> int:
     from strainer_gan_tpu_torch import cli, kernels
     from strainer_gan_tpu_torch.parallel import multihost as MH
 
-    counts = {"all_reduce": 0, "all_gather_into_tensor": 0, "broadcast": 0}
+    counts = {"all_reduce": 0, "all_gather_into_tensor": 0, "broadcast": 0,
+              "reduce_scatter_tensor": 0, "all_gather": 0}
     for name in counts:  # collectives issued eagerly or recorded into a graph
         fn = getattr(dist, name)
 
@@ -2709,6 +2833,18 @@ def dp_child(out_dir: str) -> int:
             out[name] = run_snapshot(torch, trainers[name], buf.getvalue(),
                                      kernels.launch_counts())
             out[name]["collectives"] = dict(counts)
+        # batch_mask on a dataset staged by from_rank_local: each step's
+        # lanes come in through the exchange (a reduce-scatter)
+        before = dict(counts)
+        kernels.reset_launch_counts()
+        sh = trainers["batch_mask_sharded"] = sharded_run(torch, np, trainers["batch_mask"])
+        out["batch_mask_sharded"] = run_snapshot(torch, sh, sh.logger.stream.getvalue(),
+                                                 kernels.launch_counts())
+        out["batch_mask_sharded"]["collectives"] = {k: counts[k] - before[k] for k in counts}
+        # zscore_loss's prefilter and loss strain on such a dataset
+        before = dict(counts)
+        out["strain_sharded"] = sharded_strain(torch, np, trainers["zscore_loss"])
+        out["strain_sharded"]["collectives"] = {k: counts[k] - before[k] for k in counts}
         # timed alone: the parent says go once its own phases have stopped
         out["ready_s"] = time.perf_counter() - t0
         (Path(out_dir) / "ready").write_text("")
@@ -2716,7 +2852,14 @@ def dp_child(out_dir: str) -> int:
         while not (Path(out_dir) / "go").exists():
             check(time.perf_counter() < deadline, "the dp child was never told to go")
             time.sleep(0.05)
-        out["batch_mask"]["masked_ms"] = masked_replay_ms(torch, trainers["batch_mask"])
+        for name in ("batch_mask", "batch_mask_sharded"):
+            out[name]["masked_ms"] = masked_replay_ms(torch, trainers[name])
+        ds = trainers["batch_mask_sharded"].dataset
+        out["batch_mask_sharded"]["exchange_bytes"] = ds.exchange_bytes(
+            trainers["batch_mask"].cfg.data.batch_size)
+        before = dict(counts)
+        out["tp"] = tp_step(torch, grid=True)
+        out["tp"]["collectives"] = {k: counts[k] - before[k] for k in counts}
         torch.save(out, Path(out_dir) / "child.pt")
     finally:
         MH.shutdown()
@@ -2762,6 +2905,23 @@ def dp_wait_ready(child_proc, tmp: Path) -> None:
         time.sleep(0.05)
 
 
+def same_snapshot(torch, np, got: dict, want: dict, what: str) -> None:
+    """Two ``run_snapshot``s bit for bit: state tensors, console text, loss
+    series, epoch results, per-sample history, masks, grids, last metrics;
+    ``got`` replayed a chunk."""
+    diffs = [k for k, v in want.items() if isinstance(v, torch.Tensor)
+             and not torch.equal(got[k], v)]
+    check(not diffs, f"{what}: {len(diffs)} tensors differ, first {diffs[:4]}")
+    for k in ("text", "G", "D", "results"):
+        check(got[k] == want[k] and (k != "text" or want[k]), f"{what}: {k} differs")
+    for k in ("history", "masks", "grids"):
+        check(len(got[k]) == len(want[k]) and all(
+            np.array_equal(a, b) for a, b in zip(got[k], want[k])), f"{what}: {k} differ")
+    check(all(torch.equal(a[k], b[k]) for a, b in zip(got["last"], want["last"]) for k in a),
+          f"{what}: an epoch's last metrics differ")
+    check(got["graphs"]["replays"] > 0, f"{what}: no chunk replayed")
+
+
 def dp_phase(torch, np, child_proc, tmp: Path, zl, zl_text: str, bm_run):
     """The rank path under an NCCL group of one rank (``dp_start``'s child,
     which trained beside the loss-space to zscore_loss phases and then
@@ -2784,18 +2944,13 @@ def dp_phase(torch, np, child_proc, tmp: Path, zl, zl_text: str, bm_run):
     child = torch.load(tmp / "child.pt", weights_only=False)
     plain_ms = masked_replay_ms(torch, bm)  # the child has ended: the card is this one's
     for name, want in plain.items():
-        got = child[name]
-        diffs = [k for k, v in want.items() if isinstance(v, torch.Tensor)
-                 and not torch.equal(got[k], v)]
-        check(not diffs, f"dp {name}: {len(diffs)} tensors differ, first {diffs[:4]}")
-        for k in ("text", "G", "D", "results"):
-            check(got[k] == want[k] and (k != "text" or want[k]), f"dp {name}: {k} differs")
-        for k in ("history", "masks", "grids"):
-            check(len(got[k]) == len(want[k]) and all(
-                np.array_equal(a, b) for a, b in zip(got[k], want[k])), f"dp {name}: {k} differ")
-        check(all(torch.equal(a[k], b[k]) for a, b in zip(got["last"], want["last"]) for k in a),
-              f"dp {name}: an epoch's last metrics differ")
-        check(got["graphs"]["replays"] > 0, f"dp {name}: no chunk replayed")
+        same_snapshot(torch, np, child[name], want, f"dp {name}")
+    # the sample-sharded run against the child's replicated one
+    bms = child["batch_mask_sharded"]
+    same_snapshot(torch, np, bms, child["batch_mask"], "dp batch_mask sharded")
+    check(bms["graphs"]["deferred_epochs"] == 0 and bms["graphs"]["blocking_epochs"] > 0,
+          f"dp batch_mask sharded: {bms['graphs']['deferred_epochs']} deferred epochs")
+    check(bms["collectives"]["reduce_scatter_tensor"] > 0, "dp batch_mask sharded: no exchange")
     fd = child["zscore_loss"]["graphs"]
     check(fd["deferred_epochs"] == 1 and fd["conditional_nodes"] > 0,
           f"dp zscore_loss: {fd['deferred_epochs']} epochs deferred, "
@@ -2804,8 +2959,8 @@ def dp_phase(torch, np, child_proc, tmp: Path, zl, zl_text: str, bm_run):
     check(gz["bce_scores"] >= 1 and gz["zscore_column_stats"] >= 1
           and gz["zscore_row_max"] >= 1, f"dp zscore_loss launches {gz}")
     bmc = child["batch_mask"]
-    phase("dp", f"child (RANK=0 WORLD_SIZE=1, NCCL; {child['ready_s']:.1f} s to its two runs' "
-          f"end beside phases 6-9, {child_s:.1f} s in all): batch_mask gated from "
+    phase("dp", f"child (RANK=0 WORLD_SIZE=1, NCCL; {child['ready_s']:.1f} s to the end of its runs "
+          f"beside phases 5-9, {child_s:.1f} s in all): batch_mask gated from "
           f"epoch 1 for 3 epochs ({sum(r['steps'] for r in bmc['results'])} steps, "
           f"{bmc['graphs']['replays']} chunks replayed) and zscore_loss epochs 0-3 "
           f"({child['zscore_loss']['graphs']['replays']} replayed) on the rank path: bit-equal "
@@ -2821,6 +2976,33 @@ def dp_phase(torch, np, child_proc, tmp: Path, zl, zl_text: str, bm_run):
     phase("dp", f"the replayed masked step, batch 128, synchronised ({CARD}): "
           f"{bmc['masked_ms']:.3f} ms with the NCCL collectives (world size 1), "
           f"{plain_ms:.3f} ms without a group")
+    st = child["strain_sharded"]
+    gs = st["launches"]
+    check(gs["bce_scores"] >= 1 and gs["zscore_column_stats"] >= 1
+          and gs["zscore_row_max"] >= 1, f"dp sharded strain launches {gs}")
+    phase("dp", f"sample-sharded staging (DeviceDataset.from_rank_local, every row the one "
+          f"rank's shard): batch_mask again from its configuration, bit-equal to the child's "
+          f"replicated run (its strain event blocking, {bms['graphs']['replays']} chunks "
+          f"replayed), collectives issued or recorded {json.dumps(bms['collectives'])}; "
+          f"zscore_loss's prefilter and {st['path']} loss strain made again with its trained D "
+          f"on such a copy of its {st['n']} images, bit-equal to the same on its own dataset "
+          f"(base {st['base']}, kept {st['kept']}; scores, threshold), collectives "
+          f"{json.dumps(st['collectives'])}, launches on the sharded path: K1 "
+          f"{gs['bce_scores']}, K2a {gs['zscore_column_stats']}, K2b {gs['zscore_row_max']}")
+    phase("dp", f"the replayed masked step, batch 128, synchronised ({CARD}): "
+          f"{bms['masked_ms']:.3f} ms on the sharded dataset (its lanes through a "
+          f"reduce-scatter of {bms['exchange_bytes']:,} bytes a step), {bmc['masked_ms']:.3f} ms "
+          f"replicated, both under the child's NCCL group")
+    tp, plain_tp = child["tp"], tp_step(torch, grid=False)
+    for part in ("metrics", "state"):
+        diffs = [k for k, v in plain_tp[part].items() if not torch.equal(tp[part][k], v)]
+        check(not diffs, f"dp tp: {len(diffs)} {part} tensors differ from the step with no "
+              f"group, first {diffs[:4]}")
+    phase("dp", f"basic at full width (batch 128, bf16) on a 1 x 1 dp x tp grid through "
+          f"put_state_tp: one step bit-equal to the step with no group ({len(tp['state'])} state "
+          f"tensors, {len(tp['metrics'])} metrics); collectives {json.dumps(tp['collectives'])}; "
+          f"{tp['ms']:.3f} ms a step on the grid, {plain_tp['ms']:.3f} ms with no group "
+          f"(10 eager steps, synchronised, {CARD})")
 
 
 def main() -> int:
@@ -2878,14 +3060,14 @@ def main() -> int:
     del tr
     for r in results:
         r["launches"] = launches[r["name"]]
-    dbscan_launches, staged = zscore_dbscan_phase(torch, np)
-    k3["launches"] = dbscan_launches["neighbor_counts"]
-    results.append(k3)
-    lap("zscore_dbscan")
     with tempfile.TemporaryDirectory() as tmp:
         # the dp child trains beside the next phases, then waits for its go
         child = dp_start(Path(tmp))
         try:
+            dbscan_launches, staged = zscore_dbscan_phase(torch, np)
+            k3["launches"] = dbscan_launches["neighbor_counts"]
+            results.append(k3)
+            lap("zscore_dbscan")
             loss_space_phases(torch, np, staged)
             del staged
             zscore_short_phases(torch, np)

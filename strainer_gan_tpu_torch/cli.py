@@ -25,7 +25,10 @@ means every visible card (the CPU's cores with ``--device cpu``); one
 rank without a launcher is no group, as the JAX package's ``dp=1`` is no
 mesh.  More ranks than visible cards (or cores) is refused.  Only rank 0
 prints, writes the checkpoints, PNGs and ``metrics.json``, and runs the
-eval suite; every rank restores.
+eval suite; every rank restores.  A launcher's group over more than one
+host (``torchrun --nnodes H``, which sets ``LOCAL_WORLD_SIZE``) stages
+each rank's sample shard only; every rank then gathers the eval suite's
+rows before rank 0 computes it.
 """
 from __future__ import annotations
 
@@ -224,9 +227,12 @@ def run(argv=None, stdout=None) -> Tuple[Optional[object], dict]:
         for name, m in (("G", trainer.gen), ("D", trainer.disc)):
             print(f"[strainer] {name}: params={param_count(m):,} bytes={tree_bytes(m):,} "
                   f"dtypes={dtype_summary(m)}", file=out)
-        img = trainer.dataset.images
+        ds = trainer.dataset
+        img = ds.images
+        shard = (f"; rank {MH.rank()}'s shard, rows {ds.lo}..{ds.lo + img.shape[0]} of {ds.n}"
+                 if ds.sharded else "")
         print(f"[strainer] dataset on {img.device}: {img.numel() * img.element_size():,} "
-              f"bytes ({tuple(img.shape)} {img.dtype})", file=out)
+              f"bytes ({tuple(img.shape)} {img.dtype}{shard})", file=out)
         return trainer, {}
 
     trainer.setup()
@@ -256,13 +262,17 @@ def run(argv=None, stdout=None) -> Tuple[Optional[object], dict]:
         from .parity.agreement import agreement_report
 
         results["parity"] = agreement_report(trainer, epoch=cfg.train.epochs - 1)
+    if args.eval:
+        from .eval.suite import eval_rows
+
+        # every rank: the rows of a sharded dataset come in through a collective
+        eval_ds = eval_rows(trainer.dataset, args.eval_samples)
     if not MH.is_primary():  # rank 0 evaluates and writes
         return trainer, results
     if args.eval:
         from .eval.suite import evaluate_run
 
-        results["eval"] = evaluate_run(cfg, trainer.gen, trainer.dataset,
-                                       n_samples=args.eval_samples)
+        results["eval"] = evaluate_run(cfg, trainer.gen, eval_ds, n_samples=args.eval_samples)
     if args.out:
         import numpy as np
 

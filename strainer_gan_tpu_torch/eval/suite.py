@@ -23,6 +23,11 @@ repeated to three channels, which flax rejects (``ScopeParamShapeError``,
 `strainer_gan_tpu/eval/suite.py:93-96`), so the reference gives no value
 to match.  Each call appends to ``calls`` the host seconds of its feature
 passes and of its distances (each synchronised on the card).
+
+On a sample-sharded dataset (multi-host staging) the rows the suite reads
+come in through the dataset's exchange, which every rank must enter:
+``eval_rows`` gathers them on every rank into a dataset of their own, on
+which rank 0's ``evaluate_run`` picks the same rows.
 """
 from __future__ import annotations
 
@@ -73,6 +78,19 @@ def check_config(cfg: ExperimentConfig) -> None:
             "channels, which flax rejects (ScopeParamShapeError, "
             "strainer_gan_tpu/eval/suite.py:93-96), so there is no value to match; turn "
             "feature_distance and wasserstein off")
+
+
+def eval_rows(dataset: DeviceDataset, n_samples: int) -> DeviceDataset:
+    """What ``evaluate_run`` reads of ``dataset``: the dataset itself, or of
+    a sample-sharded one (on every rank: a collective) its first
+    ``n_samples`` clean and first ``n_samples`` contaminant rows, in dataset
+    order, gathered into a dataset of their own."""
+    if not dataset.sharded:
+        return dataset
+    src = dataset.all_source_ids()
+    idx = torch.cat([torch.nonzero(src == 0).flatten()[:n_samples],
+                     torch.nonzero(src != 0).flatten()[:n_samples]]).sort().values
+    return DeviceDataset.from_tensors(dataset.gather(idx), src[idx], dataset.device)
 
 
 def evaluate_run(cfg: ExperimentConfig, gen: torch.nn.Module, dataset: DeviceDataset,

@@ -58,8 +58,8 @@ class MaskedBatchNorm(nn.Module):
                 if M.sharded():
                     # every rank holds n lanes' values: merge the ranks' means
                     # and centred variances (exact at world size 1: f = 1)
-                    f = 1.0 / M.world()
-                    n *= M.world()
+                    f = 1.0 / M.dp_world()
+                    n *= M.dp_world()
                     mean_l = mean
                     mean = R(mean_l * f)
                     var = R((var + (mean_l - mean) ** 2) * f)

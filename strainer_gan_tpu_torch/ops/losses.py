@@ -76,7 +76,7 @@ def weighted_mean(per_sample: torch.Tensor,
     sum to the global mean, and their gradients to its gradient."""
     if weights is None:
         m = per_sample.mean()
-        return m / M.world() if M.sharded() else m
+        return m / M.dp_world() if M.sharded() else m
     w = weights.to(per_sample.dtype)
     wsum = w.sum()
     if M.sharded():

@@ -19,18 +19,41 @@ The BatchNorms and loss means reduce over ranks only inside
 ``batch_sharded()`` (the train step); elsewhere (the fixed-noise grids,
 the eval-mode scoring passes) a module computes on what its rank holds.
 Without a process group every helper is the identity.
+
+``exchange`` serves a sample-sharded dataset (multi-host staging,
+``data.pipeline.DeviceDataset.from_rank_local``): every rank writes the
+rows of a request it owns and zeros elsewhere, and one sum over ranks
+gives each rank the rows (a reduce-scatter where it needs only its lanes).
+
+The dp x tp grid (`strainer_gan_tpu/parallel/mesh.py:37-46, 165-196`):
+``make_mesh_2d(dp, tp)`` lays the ranks out tp innermost (rank = d * tp +
+t) and makes one dp group and one tp group per coordinate.  Inside
+``with grid:`` the helpers above (``lanes``, ``all_reduce_sum``,
+``all_gather``, ``sync_grads``, the BatchNorm sums and loss means) work on
+the rank's dp group.  ``put_state_tp`` keeps on each rank its slice of
+every output-feature-sharded parameter, BatchNorm buffer and Adam moment
+(``tp_sharding_for``: the flax last axis, which is dim 0 of a ``Conv2d``
+or ``Linear`` weight and of a 1-D leaf, dim 1 of a ``ConvTranspose2d``
+weight; replicated where tp does not divide it) and hooks the DCGAN's
+convolutions: a sharded layer computes its own output channels, its
+BatchNorm and activation run on them, and the next layer's input is
+gathered over the tp group along channels (``tp_gather``, whose backward
+sums the partial input gradients of a sharded consumer: a reduce-scatter).
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Iterable
+import dataclasses
+from typing import Dict, Iterable, List, Optional
 
 import torch
 import torch.distributed as dist
+from torch import nn
 
 from .multihost import grouped, is_primary, rank, world
 
 _SHARDED = [False]
+_GRID: List["Grid"] = []  # the active dp x tp grid, innermost last
 
 
 @contextlib.contextmanager
@@ -56,7 +79,7 @@ def lanes(t: torch.Tensor, dim: int = 0, blocks: int = 1) -> torch.Tensor:
     if not grouped():
         return t
     n = t.shape[dim] // blocks
-    b, r = n // world(), rank()
+    b, r = n // dp_world(), dp_rank()
     parts = [t.narrow(dim, k * n + r * b, b) for k in range(blocks)]
     return parts[0] if blocks == 1 else torch.cat(parts, dim)
 
@@ -64,29 +87,30 @@ def lanes(t: torch.Tensor, dim: int = 0, blocks: int = 1) -> torch.Tensor:
 def all_reduce_(t: torch.Tensor) -> torch.Tensor:
     """In-place sum over ranks of a tensor outside autograd; returns it."""
     if grouped():
-        dist.all_reduce(t)
+        dist.all_reduce(t, **_dp())
     return t
 
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t):
+    def forward(ctx, t, kw):
+        ctx.kw = kw
         out = t.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, **kw)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         g = grad.clone()
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, **ctx.kw)
+        return g, None
 
 
 def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     """Sum over ranks, differentiable; the identity without a group."""
     if not grouped():
         return t
-    return _AllReduceSum.apply(t)
+    return _AllReduceSum.apply(t, _dp())
 
 
 def all_gather(t: torch.Tensor) -> torch.Tensor:
@@ -97,11 +121,11 @@ def all_gather(t: torch.Tensor) -> torch.Tensor:
     if src.dtype == torch.bool:
         return all_gather(src.to(torch.uint8)).to(torch.bool)
     if dist.get_backend() == "nccl":
-        out = src.new_empty((world() * src.shape[0],) + tuple(src.shape[1:]))
-        dist.all_gather_into_tensor(out, src)
+        out = src.new_empty((dp_world() * src.shape[0],) + tuple(src.shape[1:]))
+        dist.all_gather_into_tensor(out, src, **_dp())
         return out
-    parts = [torch.empty_like(src) for _ in range(world())]
-    dist.all_gather(parts, src)
+    parts = [torch.empty_like(src) for _ in range(dp_world())]
+    dist.all_gather(parts, src, **_dp())
     return torch.cat(parts)
 
 
@@ -113,7 +137,7 @@ def sync_grads(params: Iterable[torch.nn.Parameter]) -> None:
     if not grads:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, **_dp())
     o = 0
     for g in grads:
         g.copy_(flat[o:o + g.numel()].view_as(g))
@@ -143,6 +167,204 @@ def from_primary(fn, *likes: torch.Tensor):
     return tuple(broadcast(o.contiguous()) for o in outs)
 
 
-__all__ = ["all_gather", "all_reduce_", "all_reduce_sum", "batch_sharded", "broadcast",
-           "from_primary", "grouped", "is_primary", "lanes", "rank",
-           "sharded", "sync_grads", "world"]
+def exchange(rows: torch.Tensor, lanes_only: bool = False) -> torch.Tensor:
+    """The sum over ranks of ``rows`` (B, ...), each row nonzero on at most
+    one rank: every rank's rows (``lanes_only``: the rank's lanes, through
+    a reduce-scatter under NCCL; gloo has none, so it sums all and takes
+    the lanes).  Integer sums of one nonzero term are exact, so the result
+    is the owner's bytes.  In place on ``rows`` where it sums all."""
+    if not grouped():
+        return rows
+    if lanes_only and dist.get_backend() == "nccl":
+        out = rows.new_empty((rows.shape[0] // world(),) + tuple(rows.shape[1:]))
+        dist.reduce_scatter_tensor(out, rows)
+        return out
+    dist.all_reduce(rows)
+    if not lanes_only:
+        return rows
+    b = rows.shape[0] // world()
+    return rows.narrow(0, rank() * b, b)
+
+
+# ------------------------------------------------------------- dp x tp grid
+
+
+@dataclasses.dataclass
+class Grid:
+    """A dp x tp layout of the group's ranks, tp innermost: rank = d * tp + t.
+    ``with grid:`` makes the dp helpers work on ``dp_group``."""
+    dp: int
+    tp: int
+    d: int  # this rank's dp coordinate
+    t: int  # and its tp coordinate
+    dp_group: object  # the ranks with this rank's t
+    tp_group: object  # the ranks with this rank's d
+
+    def __enter__(self) -> "Grid":
+        _GRID.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _GRID.remove(self)
+
+
+def make_mesh_2d(dp: int, tp: int) -> Grid:
+    """The dp x tp grid over the process group (`mesh.py:37-46`).  Every rank
+    creates every group, in the same order: the dp groups by t, then the
+    tp groups by d."""
+    if not grouped() or world() != dp * tp:
+        raise ValueError(f"a {dp} x {tp} grid needs a process group of {dp * tp} ranks, "
+                         f"not {world() if grouped() else 0}")
+    dp_groups = [dist.new_group([d * tp + t for d in range(dp)]) for t in range(tp)]
+    tp_groups = [dist.new_group([d * tp + t for t in range(tp)]) for d in range(dp)]
+    d, t = divmod(rank(), tp)
+    return Grid(dp, tp, d, t, dp_groups[t], tp_groups[d])
+
+
+def grid() -> Optional[Grid]:
+    return _GRID[-1] if _GRID else None
+
+
+def dp_world() -> int:
+    """The ranks a batch is sharded over: the grid's dp size, else all."""
+    g = grid()
+    return g.dp if g is not None else world()
+
+
+def dp_rank() -> int:
+    g = grid()
+    return g.d if g is not None else rank()
+
+
+def _dp() -> Dict:
+    """The collectives' group keyword: the grid's dp group, else none (all)."""
+    g = grid()
+    return {"group": g.dp_group} if g is not None else {}
+
+
+def tp_sharding_for(layer: nn.Module, name: str, t: torch.Tensor, tp: int) -> Optional[int]:
+    """The dim of ``layer``'s leaf ``name`` (``t``) sharded over tp, or None
+    (replicated), as `mesh.py:165-182` decides on the flax leaf: its
+    output-feature axis when tp divides it.  That axis is dim 0 of a
+    ``Conv2d`` or ``Linear`` weight (out, in, ...), dim 1 of a
+    ``ConvTranspose2d`` weight (in, out, kh, kw), and dim 0 of a 1-D leaf
+    (biases, BatchNorm scale, shift and running statistics)."""
+    if t.dim() >= 2:
+        if isinstance(layer, nn.ConvTranspose2d):
+            dim = 1
+        elif isinstance(layer, (nn.Conv2d, nn.Linear)):
+            dim = 0
+        else:
+            return None
+    elif t.dim() == 1:
+        dim = 0
+    else:
+        return None
+    return dim if t.shape[dim] % tp == 0 else None
+
+
+def tp_placement(module: nn.Module, tp: int) -> Dict[str, Optional[int]]:
+    """``tp_sharding_for`` of every parameter and buffer of ``module``, by
+    name."""
+    out = {}
+    for mname, layer in module.named_modules():
+        for kind in (layer.named_parameters, layer.named_buffers):
+            for name, t in kind(recurse=False):
+                out[f"{mname}.{name}" if mname else name] = tp_sharding_for(layer, name, t, tp)
+    return out
+
+
+class _TPGather(torch.autograd.Function):
+    """The ranks' channel slices concatenated along dim 1 over the tp group.
+    Backward: with ``partial`` (the consumer is itself sharded, so each rank
+    holds a partial gradient of the whole input) the sum over tp, then the
+    rank's slice: a reduce-scatter; without it (a replicated consumer: every
+    rank holds the whole gradient) the rank's slice alone."""
+
+    @staticmethod
+    def forward(ctx, x, g: Grid, partial: bool):
+        ctx.g, ctx.partial, ctx.c = g, partial, x.shape[1]
+        parts = [torch.empty_like(x) for _ in range(g.tp)]
+        dist.all_gather(parts, x.contiguous(), group=g.tp_group)
+        return torch.cat(parts, 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.contiguous()
+        if ctx.partial:
+            g = g.clone()
+            dist.all_reduce(g, group=ctx.g.tp_group)
+        return g.narrow(1, ctx.g.t * ctx.c, ctx.c).contiguous(), None, None
+
+
+class _TPEnter(torch.autograd.Function):
+    """A whole input entering a sharded layer: the identity, whose backward
+    sums the ranks' partial gradients over the tp group."""
+
+    @staticmethod
+    def forward(ctx, x, g: Grid):
+        ctx.g = g
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.clone()
+        dist.all_reduce(g, group=ctx.g.tp_group)
+        return g, None
+
+
+def tp_gather(x: torch.Tensor, g: Grid, partial: bool) -> torch.Tensor:
+    return _TPGather.apply(x, g, partial)
+
+
+def _tp_hooks(convs: nn.ModuleList, sharded: List[bool], g: Grid) -> None:
+    """Each convolution's input made whole before it runs: gathered over tp
+    after a sharded layer, or entered (its gradient summed over tp) into a
+    sharded one; a sharded last layer's output gathered."""
+    for i, conv in enumerate(convs):
+        local_in = i > 0 and sharded[i - 1]
+        if local_in or sharded[i]:
+            def pre(_m, args, _local=local_in, _partial=sharded[i]):
+                x = args[0]
+                x = tp_gather(x, g, _partial) if _local else _TPEnter.apply(x, g)
+                return (x,) + tuple(args[1:])
+
+            conv.register_forward_pre_hook(pre)
+    if sharded[-1]:
+        convs[-1].register_forward_hook(lambda _m, _a, out: tp_gather(out, g, False))
+
+
+def put_state_tp(g: Grid, modules: Iterable[nn.Module],
+                 optimizers: Iterable[torch.optim.Optimizer] = ()) -> None:
+    """Keep on this rank its tp slice of every sharded parameter and buffer
+    of ``modules`` (DCGANs: a ``convs`` chain) and of the optimizers' Adam
+    moments, in place (the parameters stay the optimizers' objects), and
+    hook the convolutions (`mesh.py:185-196`).  The MLP has no tp path."""
+    opt_state = {}
+    for opt in optimizers:
+        opt_state.update(opt.state)
+    for module in modules:
+        if not hasattr(module, "convs"):
+            raise NotImplementedError(
+                f"tp is ported for the DCGAN only, not {type(module).__name__}")
+        placement = tp_placement(module, g.tp)
+        with torch.no_grad():
+            for kind in (module.named_parameters, module.named_buffers):
+                for name, t in kind():
+                    dim = placement[name]
+                    if dim is None:
+                        continue
+                    size = t.shape[dim] // g.tp
+                    t.data = t.data.narrow(dim, g.t * size, size).clone()
+                    st = opt_state.get(t, {})
+                    for key, v in st.items():  # the moments; the step count stays
+                        if isinstance(v, torch.Tensor) and v.dim() > 0:
+                            st[key] = v.narrow(dim, g.t * size, size).clone()
+        _tp_hooks(module.convs, [placement[f"convs.{i}.weight"] is not None
+                                 for i in range(len(module.convs))], g)
+
+
+__all__ = ["Grid", "all_gather", "all_reduce_", "all_reduce_sum", "batch_sharded", "broadcast",
+           "dp_rank", "dp_world", "exchange", "from_primary", "grid", "grouped",
+           "is_primary", "lanes", "make_mesh_2d", "put_state_tp", "rank", "sharded",
+           "sync_grads", "tp_gather", "tp_placement", "tp_sharding_for", "world"]

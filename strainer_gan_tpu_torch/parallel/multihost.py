@@ -11,6 +11,13 @@ on the CPU (``device="cpu"``) it speaks gloo.  It is idempotent, as
 ``jax.distributed.initialize``'s wrapper is.  Every collective of the group
 times out after ``timeout_s`` seconds, so a rank that never arrives fails
 the run instead of hanging it.
+
+``host_count`` is the counterpart of ``jax.process_count()``: the JAX
+package runs one process a host, the port one rank a card, so it counts
+hosts, ``world // LOCAL_WORLD_SIZE`` (``torchrun`` sets
+``LOCAL_WORLD_SIZE``; without it every rank is on one host).  A run over
+more than one host stages each rank's sample shard only
+(``shard_bounds``, ``data.pipeline.DeviceDataset.from_rank_local``).
 """
 from __future__ import annotations
 
@@ -28,14 +35,17 @@ def _launcher_env() -> Optional[dict]:
     """The launcher's description of this process, or None."""
     e = os.environ
     if "WORLD_SIZE" in e and "RANK" in e:
+        world = int(e["WORLD_SIZE"])
         return dict(addr=e.get("MASTER_ADDR", "127.0.0.1"), port=e.get("MASTER_PORT", "29500"),
-                    world=int(e["WORLD_SIZE"]), rank=int(e["RANK"]),
-                    local=int(e.get("LOCAL_RANK", e["RANK"])))
+                    world=world, rank=int(e["RANK"]),
+                    local=int(e.get("LOCAL_RANK", e["RANK"])),
+                    local_world=int(e.get("LOCAL_WORLD_SIZE", world)))
     if "COORDINATOR_ADDRESS" in e:
         addr, _, port = e["COORDINATOR_ADDRESS"].rpartition(":")
-        rank = int(e.get("PROCESS_ID", 0))
-        return dict(addr=addr, port=port, world=int(e.get("NUM_PROCESSES", 1)), rank=rank,
-                    local=int(e.get("LOCAL_RANK", rank)))
+        rank, world = int(e.get("PROCESS_ID", 0)), int(e.get("NUM_PROCESSES", 1))
+        return dict(addr=addr, port=port, world=world, rank=rank,
+                    local=int(e.get("LOCAL_RANK", rank)),
+                    local_world=int(e.get("LOCAL_WORLD_SIZE", world)))
     return None
 
 
@@ -73,6 +83,23 @@ def world() -> int:
 
 def rank() -> int:
     return dist.get_rank() if grouped() else 0
+
+
+def host_count() -> int:
+    """Hosts in the group: ``world // LOCAL_WORLD_SIZE`` (1 without a group,
+    or without ``LOCAL_WORLD_SIZE``)."""
+    env = _launcher_env()
+    if not grouped() or env is None:
+        return 1
+    return max(1, world() // max(1, env["local_world"]))
+
+
+def shard_bounds(n: int, rank: int, world: int):
+    """(lo, hi, n_trimmed): rank ``rank``'s contiguous rows of ``n`` samples
+    trimmed to equal shards, as `strainer_gan_tpu/train/loop.py:188-191`
+    cuts them: ``n = (n // P) * P``, rows ``[pid * n // P, (pid + 1) * n // P)``."""
+    n = (n // world) * world
+    return rank * n // world, (rank + 1) * n // world, n
 
 
 def is_primary() -> bool:

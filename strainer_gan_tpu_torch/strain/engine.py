@@ -32,7 +32,10 @@ Under a process group (``parallel``) the D-loss passes are sharded by rows
 and gathered (``score.py``), so every rank holds the same losses and
 computes the same percentile, IQR and z-score masks; the decisions that
 fit something (the GMM of ``loss_gmm`` and ``loss_ensemble``, the
-autoencoder's training) are made on rank 0 and broadcast.
+autoencoder's training) are made on rank 0 and broadcast.  On a
+sample-sharded dataset every rank trains the autoencoder (its batches come
+in through the dataset's exchange, which every rank must enter) and rank
+0's weights are broadcast all the same.
 """
 from __future__ import annotations
 
@@ -330,10 +333,11 @@ class StrainerEngine:
         drop_last=False: the last batch is the partial tail, its pad lanes
         weighted 0.  float32 with TF32 off, as the scoring.  One host read
         (the active count fixes the step count).  Under a process group
-        rank 0 trains it and broadcasts its weights."""
+        rank 0 trains it and broadcasts its weights; every rank trains it
+        on a sample-sharded dataset."""
         t0 = time.perf_counter()
         ae = self.build_ae()
-        if not M.is_primary():
+        if not M.is_primary() and not self.dataset.sharded:
             for t in ae.state_dict().values():
                 M.broadcast(t)
             self.ae = ae

@@ -19,7 +19,11 @@ Under a process group the D-loss passes are sharded by rows, as the JAX
 mesh shards them: each rank scores its block (and launches K1 on it), and
 the blocks are gathered, so every rank holds the same loss vector and
 decides the same mask.  The feature and autoencoder passes run whole on
-each rank.
+each rank, unless the dataset is sample-sharded (multi-host staging): then
+each rank scores its own shard, which is its block of a pass over the
+whole set, and the rows are gathered in order; a pass over a subset
+brings each batch's rows in through the dataset's exchange, every rank
+asking for every rank's rows of the batch.
 """
 from __future__ import annotations
 
@@ -42,15 +46,21 @@ RANK_WINDOW = 8  # rank positions re-scored on each side of a decision rank
 
 def _batched(fn: Callable[[torch.Tensor], torch.Tensor], dataset: DeviceDataset,
              out: torch.Tensor, batch_size: int, subset: Optional[torch.Tensor],
-             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+             dtype: torch.dtype = torch.float32,
+             fetch: Optional[Callable[[int, int], torch.Tensor]] = None) -> torch.Tensor:
+    """``fn`` over rows ``[0, len(out))`` of ``dataset`` (or of ``subset``),
+    in padded batches, into ``out``; ``fetch(lo, hi)``, when given, brings
+    the uint8 rows of each batch instead."""
     n = out.shape[0]
+    if fetch is None:
+        if subset is None:
+            fetch = lambda lo, hi: dataset.images[lo:hi]  # noqa: E731
+        else:
+            fetch = lambda lo, hi: dataset.gather(subset[lo:hi])  # noqa: E731
     with torch.no_grad(), f32_math():
         for lo in range(0, n, batch_size):
             hi = min(lo + batch_size, n)
-            if subset is None:
-                batch = dataset.images[lo:hi]
-            else:
-                batch = dataset.gather(subset[lo:hi])
+            batch = fetch(lo, hi)
             if hi - lo < batch_size:
                 pad = batch.new_zeros((batch_size - (hi - lo),) + batch.shape[1:])
                 batch = torch.cat([batch, pad])
@@ -82,10 +92,26 @@ def _d_losses(disc: torch.nn.Module, dataset: DeviceDataset, real_label: float,
         m = -(-n // M.world())
         lo = min(M.rank() * m, n)
         hi = min(lo + m, n)
-        rows = (torch.arange(lo, hi, device=dataset.device) if subset is None
-                else subset[lo:hi])
         block = torch.zeros((m,), dtype=torch.float32, device=dataset.device)
-        _batched(_d_logits_fn(disc, dtype), dataset, block[:hi - lo], batch_size, rows, dtype)
+        logits = _d_logits_fn(disc, dtype)
+        if not dataset.sharded:
+            rows = (torch.arange(lo, hi, device=dataset.device) if subset is None
+                    else subset[lo:hi])
+            _batched(logits, dataset, block[:hi - lo], batch_size, rows, dtype)
+        elif subset is None:
+            # the rank's block of the whole set is its shard
+            if (lo, m) != (dataset.lo, dataset.images.shape[0]):
+                raise ValueError(f"rank {M.rank()}'s shard is not its block of {n} rows")
+            _batched(logits, dataset.local(), block, batch_size, None, dtype)
+        else:
+            # every rank's block, padded to m rows: each batch's exchange
+            # brings the rank its own rows (every rank runs ceil(m / batch)
+            # batches; the padding scores row 0 and falls past n)
+            req = torch.zeros((M.world() * m,), dtype=torch.int64, device=dataset.device)
+            req[:n] = subset
+            req = req.view(M.world(), m)
+            _batched(logits, dataset, block, batch_size, None, dtype,
+                     fetch=lambda a, b: dataset.batch(req[:, a:b].reshape(-1))[0])
         return M.all_gather(bce_scores(block, real_label, out=block))[:n]
     logits = torch.empty((n,), dtype=torch.float32, device=dataset.device)
     _batched(_d_logits_fn(disc, dtype), dataset, logits, batch_size, subset, dtype)
@@ -110,10 +136,12 @@ def score_d_losses(disc: torch.nn.Module, dataset: DeviceDataset,
 def score_features(feature_fn: Callable[[torch.Tensor], torch.Tensor],
                    dataset: DeviceDataset, batch_size: int = 512) -> torch.Tensor:
     """(N, 512) float32 ResNet18 features of every sample (`score.py:148-165`,
-    `#z_score.py:276-283`)."""
-    feats = torch.empty((dataset.n, FEATURE_DIM), dtype=torch.float32,
-                        device=dataset.device)
-    return _batched(feature_fn, dataset, feats, batch_size, None)
+    `#z_score.py:276-283`); of a sample-sharded dataset, each rank's shard
+    scored and the rows gathered in order (a collective)."""
+    local = dataset.local()
+    feats = torch.empty((local.n, FEATURE_DIM), dtype=torch.float32, device=dataset.device)
+    _batched(feature_fn, local, feats, batch_size, None)
+    return M.all_gather(feats) if dataset.sharded else feats
 
 
 def score_ae_errors(ae: torch.nn.Module, dataset: DeviceDataset,
@@ -121,9 +149,10 @@ def score_ae_errors(ae: torch.nn.Module, dataset: DeviceDataset,
     """(N,) float32 per-sample reconstruction MSE of every sample
     (`score.py:371-394`, `#autoencoder.py:307-322`), in float32 with TF32
     off: the errors decide the strain."""
-    errors = torch.empty((dataset.n,), dtype=torch.float32, device=dataset.device)
-    return _batched(lambda x: reconstruction_errors(ae(x), x), dataset, errors,
-                    batch_size, None)
+    local = dataset.local()
+    errors = torch.empty((local.n,), dtype=torch.float32, device=dataset.device)
+    _batched(lambda x: reconstruction_errors(ae(x), x), local, errors, batch_size, None)
+    return M.all_gather(errors) if dataset.sharded else errors
 
 
 def band_capacity(m: int, batch_size: int, band_capacity_frac: float) -> int:

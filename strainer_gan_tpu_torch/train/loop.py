@@ -85,6 +85,17 @@ the rank's lanes (``steps.rank_inputs``; inside a chunk each rank gathers
 its own lanes).  The batch must divide by the world size.  Only rank 0
 prints and runs the periodic FID.  At world size 1 the rank path is
 bit-equal to the run with no group.
+
+Multi-host staging (`loop.py:166-199, 384-389`): when the group spans more
+than one host (``parallel.multihost.host_count``), every rank builds the
+same mixture, trims it to equal shards and stages only its own rows
+(``DeviceDataset.from_rank_local``).  Whatever the environment, a
+sample-sharded ``dataset`` makes each step bring its lanes in through the
+dataset's exchange (a collective every rank enters, recorded into the
+CUDA graphs), keeps every strain event on the blocking path (counted in
+``blocking_epochs``), sums the contamination counts over ranks, and has
+every rank gather the periodic FID's rows before rank 0 computes it.
+Bit-equal to the replicated run on the same trimmed mixture.
 """
 from __future__ import annotations
 
@@ -103,7 +114,9 @@ from ..kernels import launch_counts
 from ..models import build_models
 from ..models.features import build_feature_fn
 from ..obs.metrics import MetricsLogger
+from ..data.mixers import Mixture
 from ..parallel import mesh as M
+from ..parallel import multihost as MH
 from ..parallel.multihost import rank_device
 from ..strain.engine import StrainerEngine
 from ..strain.pool import fake_pool_rows
@@ -125,8 +138,9 @@ class Trainer:
     def __init__(self, cfg: ExperimentConfig, device=None, max_synth: Optional[int] = None,
                  dataset: Optional[DeviceDataset] = None,
                  logger: Optional[MetricsLogger] = None):
-        """``dataset``: an already staged dataset to train on (on ``device``);
-        by default the config's mixture is built and staged.  ``logger``: the
+        """``dataset``: an already staged dataset to train on (on ``device``;
+        sample-sharded or not); by default the config's mixture is built and
+        staged (this rank's shard of it across hosts).  ``logger``: the
         console and loss series (`loop.py:152-158`); by default one at the
         config's ``log_every``."""
         # under a process group: the rank's card (or the CPU with gloo)
@@ -140,7 +154,15 @@ class Trainer:
             t0 = time.perf_counter()
             mixture = build_mixture(cfg.data, max_synth=max_synth)
             self.staging_seconds = time.perf_counter() - t0
-            dataset = DeviceDataset(mixture, self.device)
+            if MH.host_count() > 1:
+                # this rank's contiguous rows of the mixture trimmed to equal
+                # shards (`loop.py:180-199`)
+                lo, hi, n = MH.shard_bounds(len(mixture), MH.rank(), MH.world())
+                dataset = DeviceDataset.from_rank_local(
+                    Mixture(mixture.images[lo:hi], mixture.source_id[lo:hi],
+                            mixture.labels[lo:hi]), n, self.device)
+            else:
+                dataset = DeviceDataset(mixture, self.device)
         self.dataset = dataset
         if cfg.data.auto_batch_divisor:
             # `#8.py:43`: batch = min(max(n // divisor, 16), 64)
@@ -260,12 +282,15 @@ class Trainer:
         with an event after them; nothing waits (`loop.py:284-292`).  On the
         deferred path this runs before the epoch's chunks are launched, so
         ``_fetch_epoch_stats`` waits for the strain and the copies only."""
-        contam = self.dataset.source_id != 0
-        dropped = torch.logical_not(active)
+        ds = self.dataset
+        contam = ds.source_id != 0  # the rank's rows of a sharded dataset
+        dropped = torch.logical_not(active).narrow(0, ds.lo, contam.shape[0])
+        counts = torch.stack([torch.logical_and(dropped, contam).sum(), contam.sum()])
+        if ds.sharded:
+            M.all_reduce_(counts)  # the counts stay global (`loop.py:263`)
         band = self.engine.last_band_stats
         overflow = band[1] if band is not None else torch.zeros((), device=self.device)
-        outs = [torch.stack([active.sum(), torch.logical_and(dropped, contam).sum(),
-                             contam.sum(), overflow.to(torch.int64)])]
+        outs = [torch.cat([active.sum().reshape(1), counts, overflow.to(torch.int64).reshape(1)])]
         if with_mask:
             outs.append(active)
         if self.device.type != "cuda":
@@ -387,9 +412,10 @@ class Trainer:
         key = (chunk, gate, d_train, True, self.scfg.compute_dtype)
         # the deferred-stats path (`loop.py:373-390`): a strain event of a
         # chunked epoch without grids, once its capture key has had its
-        # warm-up step (decided here, before any capture)
+        # warm-up step (decided here, before any capture); a sample-sharded
+        # dataset keeps the blocking path (`loop.py:384-389`)
         deferred = (t.defer_epoch_stats and strain_event and chunk > 1 and not sampling
-                    and key in self._executors)
+                    and key in self._executors and not self.dataset.sharded)
         if strain_event:
             self.graph_stats["deferred_epochs" if deferred else "blocking_epochs"] += 1
         lr_g = lr_at(t.lr_g, epoch, t)
@@ -440,15 +466,15 @@ class Trainer:
 
             def run_one(i):
                 # the global step's draws; the rank takes its lanes
-                ids, z, rows, drop = rank_inputs(
+                _, z, rows, drop = rank_inputs(
                     self.scfg, idx[i], self.step_noise(epoch, i),
                     self.step_pool_rows(epoch, i) if pooled else None,
                     self.step_dropout(epoch, i))
-                x = normalize_u8(self.dataset.gather(ids), torch.float32)
+                u8, src = self.dataset.batch(idx[i])
                 valid = tail if (tail and i == steps - 1) else None
                 m = train_step(
-                    self.gen, self.disc, self.opt_g, self.opt_d, x,
-                    self.dataset.source_id[ids], z, lr_g, lr_d, self.scfg, d_train=d_train,
+                    self.gen, self.disc, self.opt_g, self.opt_d, normalize_u8(u8, torch.float32),
+                    src, z, lr_g, lr_d, self.scfg, d_train=d_train,
                     lane_count=valid, mask_on=gate, fake_pool=self.fake_pool,
                     pool_idx=rows, concat_on=concat_on, drop_masks=drop,
                 )
@@ -506,14 +532,17 @@ class Trainer:
             self.engine.last_batch_valid = bs if lanes is None else lanes
         ev = cfg.eval
         if ev.fid and ev.fid_every_epochs and (epoch + 1) % ev.fid_every_epochs == 0 \
-                and M.is_primary():
-            # the periodic FID (`# 1,2,8.py:333-359`; `loop.py:738-753`)
-            from ..eval.suite import evaluate_run
+                and (M.is_primary() or self.dataset.sharded):
+            # the periodic FID (`# 1,2,8.py:333-359`; `loop.py:738-753`); the
+            # rows it reads gathered on every rank of a sharded dataset
+            from ..eval.suite import eval_rows, evaluate_run
 
-            fid = evaluate_run(cfg, self.gen, self.dataset,
-                               n_samples=min(ev.fid_n_samples, self.dataset.n))
-            self.fid_history.append((epoch, fid.get("fid_real")))
-            self.logger.stream.write(f"Epoch {epoch + 1}: FID = {fid.get('fid_real')}\n")
+            n_fid = min(ev.fid_n_samples, self.dataset.n)
+            rows = eval_rows(self.dataset, n_fid)
+            if M.is_primary():
+                fid = evaluate_run(cfg, self.gen, rows, n_samples=n_fid)
+                self.fid_history.append((epoch, fid.get("fid_real")))
+                self.logger.stream.write(f"Epoch {epoch + 1}: FID = {fid.get('fid_real')}\n")
         if losses:
             # the reference's per-epoch ``epoch_losses`` (`# 1,2,8.py:300-303`)
             self.epoch_loss_history.append(torch.cat(losses).cpu().numpy())

@@ -229,7 +229,22 @@ def step_body(gen: torch.nn.Module, disc: torch.nn.Module,
     lanes, every BatchNorm statistic, loss mean, metric and counter is the
     global batch's, the in-step quantile runs over the gathered scores,
     and the gradients are summed over ranks before each Adam step.  The
-    per-sample metrics come back for the global batch, in rank order."""
+    per-sample metrics come back for the global batch, in rank order.
+
+    Inside a dp x tp grid (``with grid:``, the state placed by
+    ``parallel.mesh.put_state_tp``) the batch is sharded over the dp
+    coordinate and every sum above runs over the dp group, while each
+    sharded layer computes its own output channels and the tp group
+    gathers them for the next (`mesh.py:165-196`).  Only the D-first DCGAN
+    step runs there: the in-step keep, the pool and the MLP steps raise."""
+    if M.grid() is not None:
+        unported = [name for name, on in (
+            ("the in-step keep", scfg.batch_mask or scfg.in_batch_recycle),
+            ("the fake pool", scfg.pool_concat),
+            ("the MLP step", scfg.flatten or scfg.dropout > 0 or scfg.g_before_d)) if on]
+        if unported:
+            raise NotImplementedError(f"{', '.join(unported)} under a dp x tp grid: only the "
+                                      "D-first DCGAN step is ported for tp")
     with M.batch_sharded():
         return _step(gen, disc, opt_g, opt_d, x, source_id, z, scfg, d_train, lane_count,
                      mask_on, stem_share, fake_pool, pool_idx, concat_on, drop_masks)
@@ -257,7 +272,7 @@ def _step(gen, disc, opt_g, opt_d, x, source_id, z, scfg, d_train, lane_count, m
     valid = valid_g = None
     valid_w = None
     if lane_count is not None:
-        off = M.rank() * b  # the global index of the rank's first lane
+        off = M.dp_rank() * b  # the global index of the rank's first lane
         valid = torch.arange(off, off + b, device=dev) < lane_count
         valid_w = valid.to(torch.float32)
         valid_g = M.all_gather(valid)
@@ -270,7 +285,7 @@ def _step(gen, disc, opt_g, opt_d, x, source_id, z, scfg, d_train, lane_count, m
     keep = torch.ones((b,), dtype=torch.bool, device=dev) if valid is None else valid
     keep_g = keep  # the global batch's keep, for the metrics
     if sharded:
-        keep_g = (torch.ones((b * M.world(),), dtype=torch.bool, device=dev) if valid is None
+        keep_g = (torch.ones((b * M.dp_world(),), dtype=torch.bool, device=dev) if valid is None
                   else valid_g)
     h_real = None
     if masked:
@@ -453,15 +468,15 @@ class ChunkedStep:
     def _step(self, j: int, lane_count: Optional[torch.Tensor] = None) -> None:
         """Step ``j`` of the chunk from the static buffers, its metrics into
         row ``j`` of ``out``."""
-        ds = self.dataset
-        # the rank's lanes of the step (all of them without a group)
-        ids, z, pool_idx, drop = rank_inputs(self.scfg, self.idx[j], self.z[j],
-                                             self.pool_idx[j], [m[j] for m in self.drop])
+        # the rank's lanes of the step (all of them without a group); a
+        # sample-sharded dataset brings them in through the exchange
+        u8, src = self.dataset.batch(self.idx[j])
+        _, z, pool_idx, drop = rank_inputs(self.scfg, self.idx[j], self.z[j],
+                                           self.pool_idx[j], [m[j] for m in self.drop])
         m = step_body(self.gen, self.disc, self.opt_g, self.opt_d,
-                      normalize_u8(ds.gather(ids), torch.float32), ds.source_id[ids],
-                      z, self.scfg, d_train=self.d_train, lane_count=lane_count,
-                      mask_on=self.mask_on, stem_share=self.stem_share,
-                      fake_pool=self.fake_pool, pool_idx=pool_idx,
+                      normalize_u8(u8, torch.float32), src, z, self.scfg,
+                      d_train=self.d_train, lane_count=lane_count, mask_on=self.mask_on,
+                      stem_share=self.stem_share, fake_pool=self.fake_pool, pool_idx=pool_idx,
                       concat_on=self.concat_on, drop_masks=drop)
         for k, v in m.items():
             self.out[k][j].copy_(v)
