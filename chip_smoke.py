@@ -133,11 +133,19 @@ script exits non-zero without printing its result line:
    are made again by fresh engines with its trained D on its dataset and
    on such a copy (the passes read the rank's block, the base subset's
    rows come through the exchange): bit-equal, K1/K2a/K2b's launches on
-   the sharded path printed.  The dp x tp helpers: one ``basic`` step
-   at full width (batch 128, bf16) on a 1 x 1 grid through
-   ``put_state_tp`` in the child must be bit-equal to the same seeded
-   step with no group in this process; both are timed over 10 eager
-   steps.
+   the sharded path printed.  The dp x tp helpers, on one 1 x 1 grid
+   made in the child: one ``basic`` step at full width (batch 128, bf16)
+   through ``put_state_tp`` must be bit-equal to the same seeded step with
+   no group in this process, both timed over 3 eager steps; so must one
+   step each of ``batch_mask`` and ``in_batch_recycle`` (the in-step keep
+   on), ``strainer_concat_fast``'s pool step (its gate on, seeded pool
+   rows), ``mnist8`` and ``mnist_full`` (keep masks from a seeded
+   ``torch.Generator``), all as shipped at full width; then one chunk of
+   32 ``batch_mask`` steps captured (with the grid's tp gathers and
+   their backward sums) and replayed on the grid must be bit-equal to
+   the same 32 steps eager on the grid.  Prints the collectives the
+   capture recorded, and the masked step's ms replayed and eager on the
+   grid beside its replayed ms with no group and on the rank path.
 11. in_batch_recycle: through the command line with ``--epochs 4
    --max-synth 4500`` across its gate epoch (3): the reals the in-step keep
    drops replace fakes in D's fake batch; the same run at
@@ -158,8 +166,8 @@ script exits non-zero without printing its result line:
    ``steps_per_dispatch=1`` bit-equal, its 28x28 grey grids read back,
    ms/step replayed and eager, and a ``Sampler`` serving its checkpoint
    (ms a batch of 64, replayed and eager, replayed batches bit-equal).
-14. mnist_full: through the command line, for 20 epochs with its FID every
-   20 (a config JSON), and ``--parity-check``: the 1-channel ResNet18 z-score prefilter (K2a and
+14. mnist_full: through the command line, for 10 epochs with its FID every
+   10 (a config JSON), and ``--parity-check``: the 1-channel ResNet18 z-score prefilter (K2a and
    K2b at ``numpy_eps``, launched on the path) with a mask equal to the
    plain path's on the card and both kernels timed at its shape; the
    D-first dropout step, G with BatchNorm1d, labels 0.9/0.1 (a replayed
@@ -232,18 +240,20 @@ Deviations from the presets, each for a reason:
 - ``strainer_concat_fast``: ``--epochs 4`` (epoch 3 is its gate and first
   loss strain) and ``--max-synth 4096`` per source (8,192 images).
 - ``mnist8``: ``--epochs 2`` of 300 (every epoch is the same step).
-- ``mnist_full``: 20 epochs of 300 with ``fid_every_epochs=20`` (shipped
+- ``mnist_full``: 10 epochs of 300 with ``fid_every_epochs=10`` (shipped
   100), through a config JSON: the periodic FID still fires on the shipped
-  path, at epoch 20.  Its 100 epochs took 48.5-56.1 s, most of it the
-  eager remainder steps, and the script must stay well inside its time
-  limit as phases are added.  Its data is whole (three synthetic
+  path, at epoch 10.  On an NVIDIA H100 80GB HBM3 (700 W) its 100 epochs
+  took 48.5-56.1 s and its 20 epochs 17.6-22.6 s, most of it the eager
+  remainder steps, and the script must stay well inside its time limit as
+  phases are added.  Its data is whole (three synthetic
   60,000-image digit sources, as shipped).
 - ``strainer_gan`` (eval): ``--epochs 1 --max-synth 2560`` per source (40
   steps, so that the epoch holds a chunk): the suite needs a trained G,
   not a long run.
 - dp: world size 1 (the machine has one card); ``batch_mask`` and
   ``zscore_loss`` as their other phases cut them, each run twice there
-  (replicated, then sample-sharded); the tp grid 1 x 1, one step compared.
+  (replicated, then sample-sharded); the tp grid 1 x 1, one step a
+  variant compared, and one chunk of the masked step.
 
 The second-to-last lines are one JSON object of per-kernel results and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -1956,6 +1966,9 @@ def deferred_phase(torch, np, tr):
           f"measurement, in the order g u u g g u; {CARD})")
 
 
+EAGER_TIMED = 32  # eager steps timed beside the replays (host-bound, so a few suffice)
+
+
 def chunked_batch_mask(torch, np, bm):
     """``batch_mask`` at steps_per_dispatch 32 and 1 on the CLI phase's
     images, gated from epoch 1, for 3 epochs; then replayed against eager
@@ -2016,7 +2029,7 @@ f"batch_mask steps_per_dispatch={a.cfg.train.steps_per_dispatch} vs "
             return (time.perf_counter() - t0) / steps * 1e3
 
         label = "masked" if mask_on else "unmasked"
-        times[label] = (ms(replayed, 4, 4 * chunk), ms(eager, 64, 64),
+        times[label] = (ms(replayed, 4, 4 * chunk), ms(eager, EAGER_TIMED, EAGER_TIMED),
                         ms(replayed, 4, 4 * chunk))
         if mask_on:
             # the replay alone, between CUDA events: the chunk's device time
@@ -2029,7 +2042,8 @@ f"batch_mask steps_per_dispatch={a.cfg.train.steps_per_dispatch} vs "
     parts = ", ".join(f"{k} {r0:.3f} / {r1:.3f} replayed, {e:.3f} eager"
                       for k, (r0, e, r1) in times.items())
     phase("chunked", f"ms/step, synchronised, batch {bs} ({CARD}; replayed = 4 chunks of "
-          f"{chunk} with their noise draws and copies, before / after 64 eager steps): "
+          f"{chunk} with their noise draws and copies, before / after {EAGER_TIMED} eager "
+          "steps): "
           + parts)
     r_masked = (times["masked"][0] + times["masked"][2]) / 2
     traced = (f"the trace of 2 replayed chunks shows {summary['launches_per_step']:.1f} device "
@@ -2340,15 +2354,16 @@ def mnist8_phase(torch, np, out_dir: Path):
           f"ms a batch of 64: replayed {rep:.3f}, eager {eag:.3f}")
 
 
-MNIST_FULL_EPOCHS = 20  # and its periodic FID every 20 epochs (shipped: 300 and 100)
+MNIST_FULL_EPOCHS = 10  # and its periodic FID every 10 epochs (shipped: 300 and 100)
 
 
 def mnist_full_phase(torch, np, out_dir: Path):
-    """``mnist_full`` through the command line for 20 epochs (a config JSON
-    with ``fid_every_epochs=20``): the 1-channel z-score prefilter (K2a,
+    """``mnist_full`` through the command line for ``MNIST_FULL_EPOCHS``
+    epochs (a config JSON with its FID every as many): the 1-channel
+    z-score prefilter (K2a,
     K2b at numpy_eps) held to the plain path on the card, the D-first
     dropout step (a replayed chunk bit-equal to its 32 eager steps, fresh
-    masks every replay), the periodic FID at epoch 20 and the parity
+    masks every replay), the periodic FID at the last epoch and the parity
     report."""
     from strainer_gan_tpu_torch import cli, get_preset, kernels
     from strainer_gan_tpu_torch.eval import fid as FID
@@ -2671,11 +2686,7 @@ def run_snapshot(torch, tr, text: str, launches: dict) -> dict:
                                            "total_contam")} for r in tr.epoch_results],
                last=[{k: v.cpu() for k, v in r["last"].items()} for r in tr.epoch_results],
                grids=tr.img_list, graphs=dict(tr.graph_stats))
-    for name in ("gen", "disc", "opt_g", "opt_d"):
-        sd = getattr(tr, name).state_dict()
-        if name.startswith("opt"):
-            sd = {f"{i}.{k}": v for i, st in sd["state"].items() for k, v in st.items()}
-        out.update({f"{name}.{k}": torch.as_tensor(v).cpu() for k, v in sd.items()})
+    out.update(host_state(torch, tr.gen, tr.disc, tr.opt_g, tr.opt_d))
     return out
 
 
@@ -2749,33 +2760,62 @@ def sharded_strain(torch, np, tr) -> dict:
                 n=ds.n, path=a["path"])
 
 
-def tp_step(torch, grid: bool, steps: int = 10) -> dict:
-    """``basic`` at full width (nz=100, ngf=ndf=64, batch 128, bf16 as
-    shipped), seeded weights, images and noise: one step on a 1 x 1 dp x tp
-    grid through ``put_state_tp`` (``grid``; under the dp child's group) or
-    with no grid, its metrics and state; then the ms of ``steps`` more
-    steps, synchronised."""
+def tp_model(torch, preset: str, grid=None):
+    """``preset`` as shipped (bf16 for the DCGAN and the MLP) at full width,
+    seeded weights on the card, its optimizers and StepConfig; the state
+    placed on ``grid`` by ``put_state_tp`` where one is given."""
     from strainer_gan_tpu_torch import get_preset
-    from strainer_gan_tpu_torch.data import normalize_u8
     from strainer_gan_tpu_torch.models import build_models
     from strainer_gan_tpu_torch.parallel import mesh as M
     from strainer_gan_tpu_torch.train.state import make_optimizers
-    from strainer_gan_tpu_torch.train.steps import step_config_from, train_step
+    from strainer_gan_tpu_torch.train.steps import step_config_from
 
-    cfg = get_preset("basic")
+    cfg = get_preset(preset)
     gen, disc = (m.cuda() for m in build_models(cfg.model, seed=cfg.train.seed))
     opt_g, opt_d = make_optimizers(cfg, gen, disc)
+    if grid is not None:
+        M.put_state_tp(grid, [gen, disc], [opt_g, opt_d])
+    return cfg, gen, disc, opt_g, opt_d, step_config_from(cfg)
+
+
+def host_state(torch, gen, disc, opt_g, opt_d) -> dict:
+    """Parameters, buffers and optimizer state, on the host."""
+    out = {}
+    for name, obj in (("gen", gen), ("disc", disc), ("opt_g", opt_g), ("opt_d", opt_d)):
+        sd = obj.state_dict()
+        if name.startswith("opt"):
+            sd = {f"{i}.{k}": v for i, st in sd["state"].items() for k, v in st.items()}
+        out.update({f"{name}.{k}": torch.as_tensor(v).cpu() for k, v in sd.items()})
+    return out
+
+
+def digests(torch, tensors: dict) -> dict:
+    """Each tensor's dtype, shape and SHA-256 of its bytes: equal digests
+    are equal bits, and a process hands over a few bytes a tensor."""
+    import hashlib
+
+    return {k: (str(t.dtype), tuple(t.shape), hashlib.sha256(
+        t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+        .hexdigest()) for k, t in tensors.items()}
+
+
+def tp_step(torch, grid=None, steps: int = 3) -> dict:
+    """``basic`` at full width (nz=100, ngf=ndf=64, batch 128, bf16 as
+    shipped), seeded weights, images and noise: one step on ``grid`` (a 1 x
+    1 dp x tp grid under the dp child's group) through ``put_state_tp``, or
+    with no grid, its metrics and state; then the ms of ``steps`` more
+    steps, synchronised."""
+    from strainer_gan_tpu_torch.data import normalize_u8
+    from strainer_gan_tpu_torch.train.steps import train_step
+
+    cfg, gen, disc, opt_g, opt_d, scfg = tp_model(torch, "basic", grid)
     g = torch.Generator(device="cuda").manual_seed(21)
     bs, lr = cfg.data.batch_size, cfg.train.lr_d
     x = normalize_u8(torch.randint(0, 256, (bs, 64, 64, 3), generator=g, device="cuda",
                                    dtype=torch.uint8))
     src = torch.zeros((bs,), dtype=torch.int32, device="cuda")
     zs = torch.randn((steps + 1, bs, cfg.model.nz), generator=g, device="cuda")
-    scfg = step_config_from(cfg)
-    ctx = contextlib.nullcontext()
-    if grid:
-        ctx = M.make_mesh_2d(1, 1)
-        M.put_state_tp(ctx, [gen, disc], [opt_g, opt_d])
+    ctx = grid if grid is not None else contextlib.nullcontext()
 
     def one(i):
         with ctx:
@@ -2783,17 +2823,118 @@ def tp_step(torch, grid: bool, steps: int = 10) -> dict:
 
     m = one(0)
     torch.cuda.synchronize()
-    out = dict(metrics={k: v.cpu() for k, v in m.items()}, state={})
-    for name, obj in (("gen", gen), ("disc", disc), ("opt_g", opt_g), ("opt_d", opt_d)):
-        sd = obj.state_dict()
-        if name.startswith("opt"):
-            sd = {f"{i}.{k}": v for i, st in sd["state"].items() for k, v in st.items()}
-        out["state"].update({f"{name}.{k}": torch.as_tensor(v).cpu() for k, v in sd.items()})
+    out = dict(metrics={k: v.cpu() for k, v in m.items()},
+               state=host_state(torch, gen, disc, opt_g, opt_d))
     t0 = time.perf_counter()
     for i in range(1, steps + 1):
         one(i)
     torch.cuda.synchronize()
     out["ms"] = (time.perf_counter() - t0) / steps * 1e3
+    return out
+
+
+# the step variants the tp phase holds to their twins with no group: preset
+# as shipped, and the step's gates (the in-step keep on, the pool's gate on)
+TP_VARIANTS = (("batch_mask", dict(mask_on=True)), ("in_batch_recycle", dict(mask_on=True)),
+               ("strainer_concat_fast", dict(concat_on=True)), ("mnist8", {}),
+               ("mnist_full", {}))
+TP_POOL_ROWS = 512
+
+
+def tp_variants(torch, grid=None) -> dict:
+    """One step of each of ``TP_VARIANTS`` at full width from seeded
+    weights, images, source ids, noise, pool rows (the pool step) and D's
+    keep masks (``mnist_full``, from a seeded ``torch.Generator``): on
+    ``grid`` (the dp child's 1 x 1 grid) or with no grid.  Each step's
+    metrics, and its state's digests."""
+    from strainer_gan_tpu_torch.data import normalize_u8
+    from strainer_gan_tpu_torch.train.steps import drop_shape, train_step
+
+    out = {}
+    for preset, gates in TP_VARIANTS:
+        cfg, gen, disc, opt_g, opt_d, scfg = tp_model(torch, preset, grid)
+        g = torch.Generator(device="cuda").manual_seed(23)
+        bs, d = cfg.data.batch_size, cfg.data
+        u8 = torch.randint(0, 256, (bs, d.image_size, d.image_size, d.channels), generator=g,
+                           device="cuda", dtype=torch.uint8)
+        src = (torch.rand((bs,), generator=g, device="cuda") < 0.3).to(torch.int32)
+        z = torch.randn((bs, cfg.model.nz), generator=g, device="cuda")
+        kw = dict(gates)
+        if scfg.pool_concat:
+            kw.update(fake_pool=torch.randint(0, 256, (TP_POOL_ROWS,) + tuple(u8.shape[1:]),
+                                              generator=g, device="cuda", dtype=torch.uint8),
+                      pool_idx=torch.randint(0, TP_POOL_ROWS, (bs,), generator=g, device="cuda"))
+        if scfg.dropout > 0:
+            kw["drop_masks"] = [torch.rand(drop_shape(scfg, bs, w), generator=g, device="cuda")
+                                >= scfg.dropout for w in scfg.drop_widths]
+        with grid if grid is not None else contextlib.nullcontext():
+            m = train_step(gen, disc, opt_g, opt_d, normalize_u8(u8), src, z, cfg.train.lr_g,
+                           cfg.train.lr_d, scfg, **kw)
+        torch.cuda.synchronize()
+        out[preset] = dict(metrics={k: v.cpu() for k, v in m.items()},
+                           state=digests(torch, host_state(torch, gen, disc, opt_g, opt_d)))
+    return out
+
+
+def tp_chunk(torch, grid, counts: dict) -> dict:
+    """``batch_mask`` at full width (batch 128, bf16), its keep on, on
+    ``grid`` (the dp child's 1 x 1 grid), on 4,096 seeded images on the
+    card: from seeded weights a warm-up step, then one chunk of 32 steps
+    through ``ChunkedStep`` (captured once with its tp and dp collectives,
+    replayed), and from the same weights the same warm-up and 32 steps
+    eagerly on the grid.  Returns the tensors where the two runs differ
+    (none, for bit-equality), the collectives the capture recorded, the
+    ms/step of the eager steps and of 4 replayed chunks (after one), each
+    synchronised."""
+    from strainer_gan_tpu_torch.data import DeviceDataset, normalize_u8
+    from strainer_gan_tpu_torch.parallel import mesh as M
+    from strainer_gan_tpu_torch.train.steps import ChunkedStep, train_step
+
+    g = torch.Generator(device="cuda").manual_seed(29)
+    n = 4096
+    ds = DeviceDataset.from_tensors(
+        torch.randint(0, 256, (n, 64, 64, 3), generator=g, device="cuda", dtype=torch.uint8),
+        (torch.rand((n,), generator=g, device="cuda") < 0.2).to(torch.int32))
+    runs, out = {}, {}
+    for mode in ("eager", "replayed"):
+        cfg, gen, disc, opt_g, opt_d, scfg = tp_model(torch, "batch_mask", grid)
+        chunk, bs, lr = cfg.train.steps_per_dispatch, cfg.data.batch_size, cfg.train.lr_d
+        if mode == "eager":  # the same draws for both runs
+            idx = torch.stack([torch.randperm(n, generator=g, device="cuda")[:bs]
+                               for _ in range(chunk + 1)])
+            z = torch.randn((chunk + 1, bs, cfg.model.nz), generator=g, device="cuda")
+
+        def step(j):
+            u8, src = ds.batch(idx[j])
+            return train_step(gen, disc, opt_g, opt_d, normalize_u8(u8, torch.float32), src,
+                              M.lanes(z[j]), lr, lr, scfg, mask_on=True)
+
+        with grid:
+            like = step(0)  # the warm-up: Adam's state and cuDNN's plans exist
+            torch.cuda.synchronize()
+            if mode == "eager":
+                t0 = time.perf_counter()
+                ms = [step(j) for j in range(1, chunk + 1)]
+                torch.cuda.synchronize()
+                out["eager_ms"] = (time.perf_counter() - t0) / chunk * 1e3
+                metrics = {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+            else:
+                ex = ChunkedStep(gen, disc, opt_g, opt_d, ds, scfg, chunk, like, mask_on=True,
+                                 d_train=True, stats=dict(captures=0, replays=0, capture_s=[],
+                                                          instantiate_s=[]))
+                before = dict(counts)
+                metrics = ex(idx[1:], z[1:], lr, lr)
+                torch.cuda.synchronize()
+                out["recorded"] = {k: counts[k] - before[k] for k in counts}
+                out["capture_s"] = sum(ex.stats["capture_s"] + ex.stats["instantiate_s"])
+        runs[mode] = dict(metrics, **{f"state.{k}": v for k, v in
+                                      host_state(torch, gen, disc, opt_g, opt_d).items()})
+    a, b = runs["replayed"], runs["eager"]
+    out["diffs"] = [k for k, v in b.items() if not torch.equal(a[k].cpu(), v.cpu())]
+    out["tensors"], out["chunk"] = len(b), chunk
+    out["kept"] = [int(k) for k in b["keep_mask"].sum(1)]
+    # replays need no grid around them: the graph holds the collectives
+    out["replayed_ms"] = replay_ms(torch, ex, idx[1:], z[1:], lr)
     return out
 
 
@@ -2808,6 +2949,7 @@ def dp_child(out_dir: str) -> int:
 
     sys.path.insert(0, str(HERE))
     from strainer_gan_tpu_torch import cli, kernels
+    from strainer_gan_tpu_torch.parallel import mesh as M
     from strainer_gan_tpu_torch.parallel import multihost as MH
 
     counts = {"all_reduce": 0, "all_gather_into_tensor": 0, "broadcast": 0,
@@ -2858,8 +3000,11 @@ def dp_child(out_dir: str) -> int:
         out["batch_mask_sharded"]["exchange_bytes"] = ds.exchange_bytes(
             trainers["batch_mask"].cfg.data.batch_size)
         before = dict(counts)
-        out["tp"] = tp_step(torch, grid=True)
+        grid = M.make_mesh_2d(1, 1)
+        out["tp"] = tp_step(torch, grid)
         out["tp"]["collectives"] = {k: counts[k] - before[k] for k in counts}
+        out["tp_variants"] = tp_variants(torch, grid)
+        out["tp_chunk"] = tp_chunk(torch, grid, counts)
         torch.save(out, Path(out_dir) / "child.pt")
     finally:
         MH.shutdown()
@@ -2993,7 +3138,7 @@ def dp_phase(torch, np, child_proc, tmp: Path, zl, zl_text: str, bm_run):
           f"{bms['masked_ms']:.3f} ms on the sharded dataset (its lanes through a "
           f"reduce-scatter of {bms['exchange_bytes']:,} bytes a step), {bmc['masked_ms']:.3f} ms "
           f"replicated, both under the child's NCCL group")
-    tp, plain_tp = child["tp"], tp_step(torch, grid=False)
+    tp, plain_tp = child["tp"], tp_step(torch)
     for part in ("metrics", "state"):
         diffs = [k for k, v in plain_tp[part].items() if not torch.equal(tp[part][k], v)]
         check(not diffs, f"dp tp: {len(diffs)} {part} tensors differ from the step with no "
@@ -3002,7 +3147,39 @@ def dp_phase(torch, np, child_proc, tmp: Path, zl, zl_text: str, bm_run):
           f"put_state_tp: one step bit-equal to the step with no group ({len(tp['state'])} state "
           f"tensors, {len(tp['metrics'])} metrics); collectives {json.dumps(tp['collectives'])}; "
           f"{tp['ms']:.3f} ms a step on the grid, {plain_tp['ms']:.3f} ms with no group "
-          f"(10 eager steps, synchronised, {CARD})")
+          f"(3 eager steps, synchronised, {CARD})")
+    plain_v = tp_variants(torch)
+    parts = []
+    for preset, _ in TP_VARIANTS:
+        got, want = child["tp_variants"][preset], plain_v[preset]
+        diffs = [k for k, v in want["state"].items() if got["state"][k] != v]
+        diffs += [k for k, v in want["metrics"].items() if not torch.equal(got["metrics"][k], v)]
+        check(not diffs, f"dp tp {preset}: {len(diffs)} tensors differ from the step with no "
+              f"group, first {diffs[:4]}")
+        keep = want["metrics"]["keep_mask"]
+        if preset in ("batch_mask", "in_batch_recycle"):
+            check(0 < int(keep.sum()) < keep.numel(), f"dp tp {preset}: kept {int(keep.sum())}")
+        parts.append(f"{preset} ({len(want['state'])} state tensors, kept "
+                     f"{int(keep.sum())}/{keep.numel()})")
+    phase("dp", "one step each at full width as shipped (bf16) on the 1 x 1 grid, bit-equal to "
+          "the same seeded step with no group (metrics, parameters, BatchNorm buffers, Adam "
+          "state): " + ", ".join(parts) + "; the in-step keeps on, the pool step's gate on with "
+          f"{TP_POOL_ROWS} seeded pool rows, mnist_full's keep masks seeded")
+    tc = child["tp_chunk"]
+    check(not tc["diffs"], f"dp tp chunk: {len(tc['diffs'])} of {tc['tensors']} tensors differ "
+          f"between the replayed chunk and the eager steps, first {tc['diffs'][:4]}")
+    recorded = sum(tc["recorded"].values())
+    check(recorded > 0, "dp tp chunk: the capture recorded no collective")
+    phase("dp", f"batch_mask at full width (batch 128, bf16, keep on) on the 1 x 1 grid: one "
+          f"chunk of {tc['chunk']} steps captured ({tc['capture_s']:.2f} s to record and "
+          f"instantiate) and replayed, bit-equal to {tc['chunk']} eager steps on the grid "
+          f"({tc['tensors']} tensors: metrics, parameters, buffers, Adam state; kept "
+          f"{min(tc['kept'])}-{max(tc['kept'])} of 128); collectives recorded by the capture "
+          f"{json.dumps(tc['recorded'])} ({recorded / tc['chunk']:.1f} a step)")
+    phase("dp", f"the masked step, ms/step synchronised ({CARD}): {tc['replayed_ms']:.3f} replayed "
+          f"on the 1 x 1 grid, {tc['eager_ms']:.3f} eager on the grid, {plain_ms:.3f} replayed "
+          f"with no group (the chunked phase's executor), {bmc['masked_ms']:.3f} replayed on the "
+          f"rank path (world size 1, no grid)")
 
 
 def main() -> int:

@@ -14,7 +14,10 @@ nothing itself: a training forward takes its keep masks, one (N, width)
 bool tensor per hidden layer, from the caller (``drop_masks``), so that a
 CUDA graph replays fresh masks that were filled before each replay, and a
 test can hand the port the JAX package's masks.  Kept activations are
-scaled by 1 / (1 - p), as ``flax.linen.Dropout`` does.
+scaled by 1 / (1 - p), as ``flax.linen.Dropout`` does.  On a tp-sharded D
+(``parallel.mesh.put_state_tp``) a hidden layer's output holds the rank's
+features only, and each full-width mask is cut to the same columns
+(``parallel.mesh.tp_slice``).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh as M
 from .layers import Linear, MaskedBatchNorm, leaky_relu
 
 
@@ -81,6 +85,7 @@ class MLPDiscriminator(nn.Module):
         for i, lin in enumerate(self.linears[:-1]):
             x = leaky_relu(lin(x))
             if drop:
-                x = torch.where(drop_masks[i], x / keep, torch.zeros_like(x))
+                m = M.tp_slice(drop_masks[i], x.shape[-1])
+                x = torch.where(m, x / keep, torch.zeros_like(x))
         x = self.linears[-1](x)
         return x.reshape(x.shape[0]).to(torch.float32)

@@ -29,15 +29,17 @@ The dp x tp grid (`strainer_gan_tpu/parallel/mesh.py:37-46, 165-196`):
 ``make_mesh_2d(dp, tp)`` lays the ranks out tp innermost (rank = d * tp +
 t) and makes one dp group and one tp group per coordinate.  Inside
 ``with grid:`` the helpers above (``lanes``, ``all_reduce_sum``,
-``all_gather``, ``sync_grads``, the BatchNorm sums and loss means) work on
-the rank's dp group.  ``put_state_tp`` keeps on each rank its slice of
-every output-feature-sharded parameter, BatchNorm buffer and Adam moment
-(``tp_sharding_for``: the flax last axis, which is dim 0 of a ``Conv2d``
-or ``Linear`` weight and of a 1-D leaf, dim 1 of a ``ConvTranspose2d``
-weight; replicated where tp does not divide it) and hooks the DCGAN's
-convolutions: a sharded layer computes its own output channels, its
-BatchNorm and activation run on them, and the next layer's input is
-gathered over the tp group along channels (``tp_gather``, whose backward
+``all_gather``, ``sync_grads``, ``exchange``, the BatchNorm sums and loss
+means) work on the rank's dp group.  ``put_state_tp`` keeps on each rank
+its slice of every output-feature-sharded parameter, BatchNorm buffer and
+Adam moment (``tp_sharding_for``: the flax last axis, which is dim 0 of a
+``Conv2d`` or ``Linear`` weight and of a 1-D leaf, dim 1 of a
+``ConvTranspose2d`` weight; replicated where tp does not divide it) and
+hooks the module's chain of layers (the DCGAN's ``convs``, the MLP's
+``linears``): a sharded layer computes its own output features, its
+BatchNorm, activation and dropout run on them (``tp_slice`` cuts a
+full-width keep mask to the rank's columns), and the next layer's input is
+gathered over the tp group along dim 1 (``tp_gather``, whose backward
 sums the partial input gradients of a sharded consumer: a reduce-scatter).
 """
 from __future__ import annotations
@@ -170,20 +172,18 @@ def from_primary(fn, *likes: torch.Tensor):
 def exchange(rows: torch.Tensor, lanes_only: bool = False) -> torch.Tensor:
     """The sum over ranks of ``rows`` (B, ...), each row nonzero on at most
     one rank: every rank's rows (``lanes_only``: the rank's lanes, through
-    a reduce-scatter under NCCL; gloo has none, so it sums all and takes
-    the lanes).  Integer sums of one nonzero term are exact, so the result
-    is the owner's bytes.  In place on ``rows`` where it sums all."""
+    a reduce-scatter under NCCL; gloo has none, and a grid's lanes are its
+    dp coordinate's, so there it sums all and takes the lanes).  Integer
+    sums of one nonzero term are exact, so the result is the owner's
+    bytes.  In place on ``rows`` where it sums all."""
     if not grouped():
         return rows
-    if lanes_only and dist.get_backend() == "nccl":
+    if lanes_only and dist.get_backend() == "nccl" and grid() is None:
         out = rows.new_empty((rows.shape[0] // world(),) + tuple(rows.shape[1:]))
         dist.reduce_scatter_tensor(out, rows)
         return out
     dist.all_reduce(rows)
-    if not lanes_only:
-        return rows
-    b = rows.shape[0] // world()
-    return rows.narrow(0, rank() * b, b)
+    return lanes(rows) if lanes_only else rows
 
 
 # ------------------------------------------------------------- dp x tp grid
@@ -284,8 +284,13 @@ class _TPGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, g: Grid, partial: bool):
         ctx.g, ctx.partial, ctx.c = g, partial, x.shape[1]
-        parts = [torch.empty_like(x) for _ in range(g.tp)]
-        dist.all_gather(parts, x.contiguous(), group=g.tp_group)
+        src = x.contiguous()
+        if dist.get_backend() == "nccl":  # one buffer, as ``all_gather``
+            out = src.new_empty((g.tp,) + tuple(src.shape))
+            dist.all_gather_into_tensor(out, src, group=g.tp_group)
+            return torch.cat(out.unbind(0), 1)
+        parts = [torch.empty_like(src) for _ in range(g.tp)]
+        dist.all_gather(parts, src, group=g.tp_group)
         return torch.cat(parts, 1)
 
     @staticmethod
@@ -317,11 +322,32 @@ def tp_gather(x: torch.Tensor, g: Grid, partial: bool) -> torch.Tensor:
     return _TPGather.apply(x, g, partial)
 
 
-def _tp_hooks(convs: nn.ModuleList, sharded: List[bool], g: Grid) -> None:
-    """Each convolution's input made whole before it runs: gathered over tp
-    after a sharded layer, or entered (its gradient summed over tp) into a
-    sharded one; a sharded last layer's output gathered."""
-    for i, conv in enumerate(convs):
+def tp_slice(t: torch.Tensor, width: int) -> torch.Tensor:
+    """The active grid's tp rank's ``width`` columns (last dim) of ``t``, a
+    full-width tensor beside a sharded layer's output (D's keep masks: every
+    tp rank drops the same units); ``t`` itself where it is ``width`` wide
+    (no grid, or a replicated layer)."""
+    n, g = t.shape[-1], grid()
+    if n == width:
+        return t
+    if g is None or n != width * g.tp:
+        raise ValueError(f"{n} columns beside a layer output {width} wide, "
+                         f"tp {g.tp if g is not None else 'none'}")
+    return t.narrow(-1, g.t * width, width)
+
+
+# the chain of layers a tp placement hooks, by module: the DCGAN's
+# convolutions, the MLP's Linears
+TP_CHAINS = ("convs", "linears")
+
+
+def _tp_hooks(chain: nn.ModuleList, sharded: List[bool], g: Grid) -> None:
+    """Each layer's input made whole along dim 1 (channels or features)
+    before it runs: gathered over tp after a sharded layer, or entered (its
+    gradient summed over tp) into a sharded one; a sharded last layer's
+    output gathered.  What runs between two layers (BatchNorm, activation,
+    dropout) sees the earlier layer's output features only."""
+    for i, layer in enumerate(chain):
         local_in = i > 0 and sharded[i - 1]
         if local_in or sharded[i]:
             def pre(_m, args, _local=local_in, _partial=sharded[i]):
@@ -329,24 +355,26 @@ def _tp_hooks(convs: nn.ModuleList, sharded: List[bool], g: Grid) -> None:
                 x = tp_gather(x, g, _partial) if _local else _TPEnter.apply(x, g)
                 return (x,) + tuple(args[1:])
 
-            conv.register_forward_pre_hook(pre)
+            layer.register_forward_pre_hook(pre)
     if sharded[-1]:
-        convs[-1].register_forward_hook(lambda _m, _a, out: tp_gather(out, g, False))
+        chain[-1].register_forward_hook(lambda _m, _a, out: tp_gather(out, g, False))
 
 
 def put_state_tp(g: Grid, modules: Iterable[nn.Module],
                  optimizers: Iterable[torch.optim.Optimizer] = ()) -> None:
     """Keep on this rank its tp slice of every sharded parameter and buffer
-    of ``modules`` (DCGANs: a ``convs`` chain) and of the optimizers' Adam
-    moments, in place (the parameters stay the optimizers' objects), and
-    hook the convolutions (`mesh.py:185-196`).  The MLP has no tp path."""
+    of ``modules`` (the DCGAN's ``convs`` chain, the MLP's ``linears``, and
+    their BatchNorms) and of the optimizers' Adam moments, in place (the
+    parameters stay the optimizers' objects), and hook the chain's layers
+    (`mesh.py:185-196`).  A module with neither chain is refused."""
     opt_state = {}
     for opt in optimizers:
         opt_state.update(opt.state)
     for module in modules:
-        if not hasattr(module, "convs"):
+        chain = next((c for c in TP_CHAINS if hasattr(module, c)), None)
+        if chain is None:
             raise NotImplementedError(
-                f"tp is ported for the DCGAN only, not {type(module).__name__}")
+                f"{type(module).__name__} has no tp chain ({' or '.join(TP_CHAINS)})")
         placement = tp_placement(module, g.tp)
         with torch.no_grad():
             for kind in (module.named_parameters, module.named_buffers):
@@ -360,11 +388,12 @@ def put_state_tp(g: Grid, modules: Iterable[nn.Module],
                     for key, v in st.items():  # the moments; the step count stays
                         if isinstance(v, torch.Tensor) and v.dim() > 0:
                             st[key] = v.narrow(dim, g.t * size, size).clone()
-        _tp_hooks(module.convs, [placement[f"convs.{i}.weight"] is not None
-                                 for i in range(len(module.convs))], g)
+        layers = getattr(module, chain)
+        _tp_hooks(layers, [placement[f"{chain}.{i}.weight"] is not None
+                           for i in range(len(layers))], g)
 
 
 __all__ = ["Grid", "all_gather", "all_reduce_", "all_reduce_sum", "batch_sharded", "broadcast",
            "dp_rank", "dp_world", "exchange", "from_primary", "grid", "grouped",
            "is_primary", "lanes", "make_mesh_2d", "put_state_tp", "rank", "sharded",
-           "sync_grads", "tp_gather", "tp_placement", "tp_sharding_for", "world"]
+           "sync_grads", "tp_gather", "tp_placement", "tp_sharding_for", "tp_slice", "world"]

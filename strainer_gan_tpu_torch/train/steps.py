@@ -234,17 +234,15 @@ def step_body(gen: torch.nn.Module, disc: torch.nn.Module,
     Inside a dp x tp grid (``with grid:``, the state placed by
     ``parallel.mesh.put_state_tp``) the batch is sharded over the dp
     coordinate and every sum above runs over the dp group, while each
-    sharded layer computes its own output channels and the tp group
-    gathers them for the next (`mesh.py:165-196`).  Only the D-first DCGAN
-    step runs there: the in-step keep, the pool and the MLP steps raise."""
-    if M.grid() is not None:
-        unported = [name for name, on in (
-            ("the in-step keep", scfg.batch_mask or scfg.in_batch_recycle),
-            ("the fake pool", scfg.pool_concat),
-            ("the MLP step", scfg.flatten or scfg.dropout > 0 or scfg.g_before_d)) if on]
-        if unported:
-            raise NotImplementedError(f"{', '.join(unported)} under a dp x tp grid: only the "
-                                      "D-first DCGAN step is ported for tp")
+    sharded layer computes its own output features and the tp group
+    gathers them for the next (`mesh.py:165-196`).  Every variant runs
+    there, as GSPMD shards any step on a tp-placed state: the in-step keep
+    (D's 1-wide last layer is replicated at tp > 1 and reads a gathered
+    input, so every tp rank of a dp row scores the same and keeps the same
+    lanes), recycling and the pool (G's output is
+    gathered whole), and the MLP's G-first and dropout steps (each tp rank
+    drops its columns of the full-width masks).  ``ChunkedStep`` runs this
+    body too, so a chunk under the grid records the tp collectives."""
     with M.batch_sharded():
         return _step(gen, disc, opt_g, opt_d, x, source_id, z, scfg, d_train, lane_count,
                      mask_on, stem_share, fake_pool, pool_idx, concat_on, drop_masks)
@@ -414,7 +412,11 @@ class ChunkedStep:
     so the results are bit for bit the same) and every call replays it; a
     capture or a replay that fails raises, nothing drops back to eager
     steps.  On the CPU, which a caller must ask for, the same body runs
-    eagerly over the same buffers.
+    eagerly over the same buffers.  Under a process group the graph
+    records the step's collectives; on a dp x tp grid (called inside
+    ``with grid:`` on a ``put_state_tp`` state, as JAX's chunked executor
+    runs on a tp-sharded state) also the tp gathers and their backward
+    sums, so a replay needs no grid around it, and each eager call does.
 
     Static inputs: ``idx`` (chunk, batch) sample indices and ``z`` (chunk,
     batch, nz) noise, filled from the caller's draws at each call (and, for

@@ -4,11 +4,15 @@ one torch thread a rank).
 * Placement: ``parallel.mesh.tp_placement`` decides, leaf for leaf, what
   JAX's ``tp_sharding_for`` decides on the flax tree the bridge maps each
   torch leaf to (parameters, BatchNorm statistics and both Adam moments),
-  along the torch dim that is the flax leaf's last axis, at tp 2 (every
-  hidden width sharded, D's 1-channel and G's 3-channel last layers
-  replicated) and 3 (only G's 3-channel last layer sharded).
+  along the torch dim that is the flax leaf's last axis.  The DCGAN at tp
+  2 (every hidden width sharded, D's 1-channel and G's 3-channel last
+  layers replicated) and 3 (only G's 3-channel last layer sharded); the
+  MLP (``mnist8``'s and ``mnist_full``'s, whose G has BatchNorms) at tp 2
+  (every hidden width and G's 784-wide output sharded, D's 1-wide output
+  replicated) and 3 (nothing divides: all replicated).
   ``put_state_tp`` keeps each rank's slice of parameters, buffers and Adam
-  moments in place (the optimizers keep their parameter objects).
+  moments in place (the optimizers keep their parameter objects), for the
+  DCGAN and for the MLP with G's BatchNorms.
 * A 2 x 2 grid of 4 spawned gloo ranks (tests/test_torch_tp_worker.py) runs
   one narrow ``basic`` step (ngf = ndf = 8, batch 16) from weights bridged
   out of a flax state: its metrics and its state gathered again over each
@@ -21,10 +25,14 @@ one torch thread a rank).
 * A 1 x 3 grid (three gloo ranks: only G's 3-channel output layer
   sharded, its output gathered) matches the step with no group as above.
 * A 1 x 1 grid (one gloo rank) is bit-equal to the step with no group.
-* Under a grid the in-step keep, the pool and the MLP steps raise, and
-  ``put_state_tp`` refuses the MLP.
+* Under a grid no preset's step is refused: with no process group (a
+  1 x 1 grid whose groups are never used) each preset's step is the step
+  with no grid, bit for bit.
+
+Every other step variant on the grids (the in-step keep, recycling, the
+pool, the MLP steps) and the chunked executor under a grid:
+tests/test_torch_tp_variants.py.
 """
-import dataclasses
 import multiprocessing as mp
 
 import numpy as np
@@ -40,11 +48,15 @@ from strainer_gan_tpu.train.loop import step_config_from as jax_step_config
 from strainer_gan_tpu.train.state import create_state
 from strainer_gan_tpu.train.steps import make_train_step
 
+from strainer_gan_tpu.models import build_models as jax_build_models
+
 from strainer_gan_tpu_torch import bridge, get_preset
+from strainer_gan_tpu_torch.config import PRESETS
 from strainer_gan_tpu_torch.data import normalize_u8
 from strainer_gan_tpu_torch.models import Discriminator64, Generator64, build_models
 from strainer_gan_tpu_torch.parallel import mesh as M
-from strainer_gan_tpu_torch.train.steps import step_body, step_config_from, train_step
+from strainer_gan_tpu_torch.train.state import make_optimizers
+from strainer_gan_tpu_torch.train.steps import drop_shape, step_config_from, train_step
 
 import test_torch_dp_worker as DW
 import test_torch_tp_worker as W
@@ -233,18 +245,96 @@ def test_1x1_grid_bit_equal_no_group(grid_runs):
         assert torch.equal(one["step"]["state"][k], v), k
 
 
-@pytest.mark.parametrize("preset", ["batch_mask", "in_batch_recycle", "strainer_concat_fast",
-                                    "mnist8"])
-def test_unsupported_variants_raise(preset):
-    cfg = get_preset(preset)
-    cfg = cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype="float32"))
+@pytest.mark.parametrize("tp", [2, 3])
+@pytest.mark.parametrize("preset", ["mnist8", "mnist_full"])
+def test_mlp_placement_is_jax_tp_sharding_for(preset, tp):
+    cfg = DW.tiny(jax_preset(preset))
+    jgen, jdisc = jax_build_models(cfg.model)
+    state = create_state(cfg, jgen, jdisc, jax.random.PRNGKey(3))
+    mesh = jax_mesh_2d(1, tp, devices=jax.devices("cpu")[:tp])
+    gen, disc = build_models(W.variant_config(preset).model)
+    sharded = set()
+    for module, params, stats, opt in ((gen, state.g_params, state.g_stats, state.g_opt),
+                                       (disc, state.d_params, state.d_stats, state.d_opt)):
+        placement = M.tp_placement(module, tp)
+        trees = {"params": [params, opt.mu, opt.nu], "batch_stats": [stats]}
+        seen = set()
+        for name, coll, path, layout in bridge._entries(module):
+            seen.add(name)
+            for tree in trees[coll]:
+                spec = tp_sharding_for(bridge._get(tree, path), mesh).spec
+                want = None if spec == jax.sharding.PartitionSpec() else TORCH_DIM[layout]
+                assert placement[name] == want, (name, coll, spec, placement[name])
+        assert seen == set(placement)
+        tag = "G" if module is gen else "D"
+        sharded |= {f"{tag}.{k}" for k, d in placement.items() if d is not None}
+    if tp == 3:  # 256, 512, 1024, 784 and 1 are not multiples of 3
+        assert not sharded
+        return
+    linears = {f"{t}.linears.{i}.{p}" for t in "GD" for i in range(4) for p in ("weight", "bias")}
+    assert sharded & linears == linears - {"D.linears.3.weight", "D.linears.3.bias"}
+    bns = {k for k in sharded if ".bns." in k}
+    assert len(bns) == (12 if preset == "mnist_full" else 0)  # 3 BatchNorms x 4 leaves
+
+
+def test_put_state_tp_slices_mlp_in_place():
+    """``mnist_full``'s MLP after a step: each coordinate's slices of the
+    Linears, G's BatchNorm parameters and running statistics, and the Adam
+    moments."""
+    cfg = DW.tiny(get_preset("mnist_full"))
     scfg = step_config_from(cfg)
-    gen, disc = build_models(cfg.model)
-    grid = M.Grid(dp=1, tp=1, d=0, t=0, dp_group=None, tp_group=None)
-    with grid, pytest.raises(NotImplementedError, match="only the D-first DCGAN step"):
-        step_body(gen, disc, None, None, torch.zeros((2, 3, 64, 64)), torch.zeros(2), None,
-                  scfg)
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand((DW.B, 1, 28, 28), generator=g) * 2 - 1
+    z = torch.randn((DW.B, 100), generator=g)
+    drop = [torch.rand(drop_shape(scfg, DW.B, w), generator=g) < 0.7 for w in scfg.drop_widths]
+    for t in range(2):
+        gen, disc = build_models(cfg.model)
+        opt_g, opt_d = make_optimizers(cfg, gen, disc)
+        train_step(gen, disc, opt_g, opt_d, x, torch.zeros(DW.B, dtype=torch.int32), z, LR, LR,
+                   scfg, drop_masks=drop)
+        before = DW.state_of(gen, disc, opt_g, opt_d)
+        placement = W.placement_of(gen, disc, 2)
+        M.put_state_tp(M.Grid(dp=1, tp=2, d=0, t=t, dp_group=None, tp_group=None),
+                       [gen, disc], [opt_g, opt_d])
+        after = DW.state_of(gen, disc, opt_g, opt_d)
+        for k, v in before.items():
+            dim = placement[k]
+            want = v if dim is None else v.narrow(dim, t * v.shape[dim] // 2, v.shape[dim] // 2)
+            assert torch.equal(after[k], want), k
+        assert placement["G.bns.0.running_mean"] == 0 and placement["D.linears.3.weight"] is None
+
+
+def _preset_inputs(cfg, scfg, g):
+    mlp = cfg.model.arch == "mlp"
+    shape = (DW.B, 1, 28, 28) if mlp else (DW.B, cfg.model.nc, 64, 64)
+    kw = dict(mask_on=True)
+    if scfg.pool_concat:
+        pool = torch.randint(0, 256, (6,) + shape[2:] + shape[1:2], generator=g,
+                             dtype=torch.uint8)
+        kw.update(fake_pool=pool, pool_idx=torch.randint(0, 6, (DW.B,), generator=g),
+                  concat_on=True)
+    if scfg.dropout:
+        kw["drop_masks"] = [torch.rand(drop_shape(scfg, DW.B, w), generator=g) < 0.7
+                            for w in scfg.drop_widths]
+    return (torch.rand(shape, generator=g) * 2 - 1, torch.zeros(DW.B, dtype=torch.int32),
+            torch.randn((DW.B, scfg.nz), generator=g)), kw
+
+
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_no_preset_step_refused_under_a_grid(preset):
+    cfg = DW.tiny(get_preset(preset))
+    scfg = step_config_from(cfg)
+    (x, src, z), kw = _preset_inputs(cfg, scfg, torch.Generator().manual_seed(1))
+    runs = []
+    for grid in (None, M.Grid(dp=1, tp=1, d=0, t=0, dp_group=None, tp_group=None)):
+        gen, disc = build_models(cfg.model)
+        opt_g, opt_d = make_optimizers(cfg, gen, disc)
+        with W._grid_ctx(grid):
+            m = train_step(gen, disc, opt_g, opt_d, x, src, z, LR, LR, scfg, **kw)
+        runs.append((m, DW.state_of(gen, disc, opt_g, opt_d)))
     assert M.grid() is None
-    if cfg.model.arch == "mlp":
-        with pytest.raises(NotImplementedError, match="DCGAN only"):
-            M.put_state_tp(grid, [gen, disc])
+    (m0, s0), (m1, s1) = runs
+    for k, v in m0.items():
+        assert torch.equal(m1[k], v), k
+    for k, v in s0.items():
+        assert torch.equal(s1[k], v), k
