@@ -92,27 +92,29 @@ script exits non-zero without printing its result line:
    4096 --parity-check``, across the gate epoch (10): the ``Filtered
    CIFAR-10 images`` line equal to the epoch's counts, the last gated
    step's kept and valid lanes, the parity report at 1.0, s/step ungated
-   and masked; then 20 steps each of the masked, unmasked and unshared
-   masked step timed (synchronised), and one ``obs/profiler.trace`` of 20
-   masked steps: device operations per step, the device-busy share of the
+   and masked; then ``EAGER_STEPS`` (8) steps each of the masked, unmasked
+   and unshared masked step timed (synchronised), and one
+   ``obs/profiler.trace`` of ``TRACED_STEPS`` (5) masked steps: device
+   operations per step, the device-busy share of the
    traced wall time and the ten operations with the most device time.
    chunked (batch_mask): the preset on the same images with
-   ``mask_start_epoch=1``, 3 epochs (its configuration's epochs) at
+   ``mask_start_epoch=1``, 2 epochs (its configuration's epochs) at
    ``steps_per_dispatch`` 32 and 1,
    bit-equal as above (with the contamination counters and the parity
    report's last batch); then ms/step of replayed chunks against eager
    steps, masked and unmasked (synchronised), and a replayed masked chunk's
    device time (CUDA events) against its time through the executor, with a
-   trace of two replayed chunks.
+   trace of one replayed chunk.
    dp: the data-parallel rank path on the card.  A child process (this
    script with ``--dp-child <dir>``) gets a launcher's environment of one
-   rank (``RANK=0 WORLD_SIZE=1``, a free ``MASTER_PORT``), so ``--dp 1``
+   rank (``RANK=0 WORLD_SIZE=1``, joining the store this script holds for
+   it through ``parallel.multihost.Rendezvous``), so ``--dp 1``
    joins an NCCL group and the Trainer takes the rank path: its BatchNorm
    sums, loss denominators, gathered scores, gradient buckets and metrics
    go through NCCL collectives, recorded into the chunked executor's CUDA
    graphs.  Started before phase 5, it trains, beside phases 5-9 (whose
    seconds therefore include its load), ``batch_mask`` gated from epoch 1
-   for 3 epochs (``--max-synth 4096``, a config JSON: the chunked phase's
+   for 2 epochs (``--max-synth 4096``, a config JSON: the chunked phase's
    configuration) and ``zscore_loss`` as phase 9 runs it (the K2 prefilter, then the epoch-3 loss strain
    through the row-sharded scoring pass and K1), then waits, idle, until
    the chunked phase is done; each run must be bit-equal to the same run
@@ -141,9 +143,9 @@ script exits non-zero without printing its result line:
    on), ``strainer_concat_fast``'s pool step (its gate on, seeded pool
    rows), ``mnist8`` and ``mnist_full`` (keep masks from a seeded
    ``torch.Generator``), all as shipped at full width; then one chunk of
-   32 ``batch_mask`` steps captured (with the grid's tp gathers and
-   their backward sums) and replayed on the grid must be bit-equal to
-   the same 32 steps eager on the grid.  Prints the collectives the
+   ``TP_CHUNK`` (8) ``batch_mask`` steps captured (with the grid's tp
+   gathers and their backward sums) and replayed on the grid must be
+   bit-equal to the same steps eager on the grid.  Prints the collectives the
    capture recorded, and the masked step's ms replayed and eager on the
    grid beside its replayed ms with no group and on the rank path.
 11. in_batch_recycle: through the command line with ``--epochs 4
@@ -152,7 +154,7 @@ script exits non-zero without printing its result line:
    ``steps_per_dispatch=1`` bit-equal; the recycled lanes of each step of a
    replayed gated chunk, and ms/step replayed with and without recycling.
 12. fake_pool: ``strainer_concat_fast`` through the command line with
-   ``--epochs 4 --max-synth 4096`` per source: the z-score prefilter and
+   ``--epochs 4 --max-synth 3400`` per source: the z-score prefilter and
    the pool's outlier mask (K2a, K2b), the device-resident pool of 10% of
    the images drawn from the outliers (its size, outlier count and
    anime-like share printed), the pooled step (2x128 fake lanes) from the
@@ -166,14 +168,14 @@ script exits non-zero without printing its result line:
    ``steps_per_dispatch=1`` bit-equal, its 28x28 grey grids read back,
    ms/step replayed and eager, and a ``Sampler`` serving its checkpoint
    (ms a batch of 64, replayed and eager, replayed batches bit-equal).
-14. mnist_full: through the command line, for 10 epochs with its FID every
-   10 (a config JSON), and ``--parity-check``: the 1-channel ResNet18 z-score prefilter (K2a and
+14. mnist_full: through the command line, for 3 epochs with its FID every
+   3 (a config JSON), and ``--parity-check``: the 1-channel ResNet18 z-score prefilter (K2a and
    K2b at ``numpy_eps``, launched on the path) with a mask equal to the
    plain path's on the card and both kernels timed at its shape; the
    D-first dropout step, G with BatchNorm1d, labels 0.9/0.1 (a replayed
    chunk bit-equal to its 32 eager steps on the same noise and keep masks,
    consecutive replays with fresh masks, ms/step replayed and eager); the
-   periodic FID at epoch 20 (real and contaminant, finite, with the
+   periodic FID at epoch 3 (real and contaminant, finite, with the
    seconds of the activation passes and of the square root, and its
    branch); the parity report at 1.0.
 15. fid: the FID chain on ``tests/fixtures/backbones.npz`` (InceptionV3
@@ -212,7 +214,7 @@ Deviations from the presets, each for a reason:
 - ``final`` (deferred): 6 epochs (the strain epochs 4 and 5 are the first
   a warmed-up capture key lets defer) on the slice's images, its clean
   ratios changed so that the count shrinks.
-- ``zscore_dbscan``: ``epochs=2`` (the prefilter is the preset's only
+- ``zscore_dbscan``: ``epochs=1`` (the prefilter is the preset's only
   strain event; further epochs repeat the same step).
 - ``zscore_elbow``: ``max_synth=2048`` per source and only the prefilter
   (its only strain event).
@@ -231,18 +233,20 @@ Deviations from the presets, each for a reason:
   strain at 3).
 - ``batch_mask``: ``--epochs 11`` (epoch 10 is the first gated one) and
   ``--max-synth 4096`` (4,096 CelebA-like and 409 CIFAR-like images); in
-  the chunked phase ``mask_start_epoch=1`` and 3 epochs on the same images
-  (the gate within 3 epochs, for a run made twice; its configuration says
-  3 epochs, so that the dp child's command-line run is the same run).
+  the chunked phase ``mask_start_epoch=1`` and 2 epochs on the same images
+  (the gate within 2 epochs, for a run made twice; its configuration says
+  2 epochs, so that the dp child's command-line run is the same run).
 - ``in_batch_recycle``: ``--epochs 4`` (epoch 3 is its gate) and
   ``--max-synth 4500`` (36 steps an epoch with a 20-lane tail: after the
   run's first step, a sample point, a warm-up step and a chunk of 32).
 - ``strainer_concat_fast``: ``--epochs 4`` (epoch 3 is its gate and first
-  loss strain) and ``--max-synth 4096`` per source (8,192 images).
+  loss strain) and ``--max-synth 3400`` per source (6,800 images: about
+  36 steps in epoch 3, after the prefilter and the strain, so that its
+  resume still replays a chunk).
 - ``mnist8``: ``--epochs 2`` of 300 (every epoch is the same step).
-- ``mnist_full``: 10 epochs of 300 with ``fid_every_epochs=10`` (shipped
+- ``mnist_full``: 3 epochs of 300 with ``fid_every_epochs=3`` (shipped
   100), through a config JSON: the periodic FID still fires on the shipped
-  path, at epoch 10.  On an NVIDIA H100 80GB HBM3 (700 W) its 100 epochs
+  path, at epoch 3.  On an NVIDIA H100 80GB HBM3 (700 W) its 100 epochs
   took 48.5-56.1 s and its 20 epochs 17.6-22.6 s, most of it the eager
   remainder steps, and the script must stay well inside its time limit as
   phases are added.  Its data is whole (three synthetic
@@ -467,6 +471,9 @@ def staging(tr, name: str) -> None:
     STAGING.append((name, tr.dataset.n, tr.staging_seconds))
     phase(name, f"staging: native, {tr.staging_seconds:.2f} s for {tr.dataset.n} images "
           f"(host, {CARD})")
+
+
+REPLAYED_CHUNKS = 2  # chunk executor calls a replay timing, after one
 
 
 def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
@@ -1151,7 +1158,7 @@ def zscore_dbscan_phase(torch, np):
 
     cfg = get_preset("zscore_dbscan")
     cfg = cfg.replace(data=dataclasses.replace(cfg.data, batch_size=128),
-                      train=dataclasses.replace(cfg.train, epochs=2))
+                      train=dataclasses.replace(cfg.train, epochs=1))
     t0 = time.perf_counter()
     tr = Trainer(cfg)
     torch.cuda.synchronize()
@@ -1340,6 +1347,10 @@ class Tee(io.TextIOBase):
         self.stream.flush()
 
 
+EAGER_STEPS = 8  # eager masked steps a timing (host-bound, so a few suffice)
+TRACED_STEPS = 5  # masked steps in the profiler trace
+
+
 def batch_mask_phase(torch, np):
     """``batch_mask`` through the command line across its gate epoch, then
     timed and traced steps of the masked step."""
@@ -1411,46 +1422,48 @@ def batch_mask_phase(torch, np):
                        lr, lr, tr.scfg, d_train=d_train, **kw)
 
     def ms_per_step(**kw):
-        run_steps(3, **kw)
+        run_steps(2, **kw)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        run_steps(20, **kw)
+        run_steps(EAGER_STEPS, **kw)
         torch.cuda.synchronize()
-        return (time.perf_counter() - t) / 20 * 1e3
+        return (time.perf_counter() - t) / EAGER_STEPS * 1e3
 
     variants = (("masked", dict(mask_on=True)), ("unmasked", {}),
                 ("masked without stem sharing", dict(mask_on=True, stem_share=False)),
                 ("masked", dict(mask_on=True)))
     times = [(label, ms_per_step(**kw)) for label, kw in variants]
-    phase("batch_mask", "ms/step, 20 steps each, synchronised, in this order: "
+    phase("batch_mask", f"ms/step, {EAGER_STEPS} steps each, synchronised, in this order: "
           + ", ".join(f"{label} {t:.3f}" for label, t in times))
     with tempfile.TemporaryDirectory() as log_dir:
         t = time.perf_counter()
         with profiler.trace(log_dir) as prof:
-            run_steps(20, mask_on=True)
+            run_steps(TRACED_STEPS, mask_on=True)
         traced = time.perf_counter() - t
-        summary = profiler.summarize(prof, steps=20)
+        summary = profiler.summarize(prof, steps=TRACED_STEPS)
+        summarised = time.perf_counter() - t - traced
         size = (Path(log_dir) / "trace.json").stat().st_size
     check(summary["device_busy_ms"] > 0, "the trace holds no device time")
-    phase("batch_mask", f"trace of 20 masked steps ({traced:.2f} s traced, Chrome trace "
+    phase("batch_mask", f"trace of {TRACED_STEPS} masked steps ({traced:.2f} s traced and "
+          f"exported, {summarised:.2f} s to summarise, Chrome trace "
           f"{size / 1e6:.1f} MB, not kept): {summary['launches_per_step']:.1f} device "
           f"operations per step; device busy {summary['device_busy_ms']:.2f} ms of "
           f"{summary['wall_ms']:.2f} ms traced ({summary['busy_share']:.3f}); busy per step "
-          f"{summary['device_busy_ms'] / 20:.3f} ms")
+          f"{summary['device_busy_ms'] / TRACED_STEPS:.3f} ms")
     for op in summary["top"]:
         phase("batch_mask", f"  {op['ms']:9.3f} ms  x{op['count']:5d}  {op['name'][:110]}")
     return tr
 
 
 def host_staging_phase(np):
-    """The host-staging pieces alone on this host: 20,000 CelebA-like images
-    generated, 20,000 CIFAR-like ones generated at 32x32 and resized to 64
-    by the host-staging library (``native``), the first 2,000 of them by the
+    """The host-staging pieces alone on this host: 5,000 CelebA-like images
+    generated, 5,000 CIFAR-like ones generated at 32x32 and resized to 64
+    by the host-staging library (``native``), the first 500 of them by the
     numpy plain version, and how many bytes the two differ by (0 where the
     library's compiled roundings are the ones the plain version repeats)."""
     from strainer_gan_tpu_torch.data import datasets as D
 
-    n, m = 20_000, 2_000
+    n, m = 5_000, 500
     t0 = time.perf_counter()
     D._synthetic("faces", n, 64, 3, 5)
     t1 = time.perf_counter()
@@ -1480,28 +1493,29 @@ def adam_phase(torch, np):
         check(str(fixture[f"sha256_{k}"]) == digest, f"Adam fixture input {k} is not the one stored")
     parts = []
     for replay in (False, True):
+        t0 = time.perf_counter()
         gaps = adam_gaps(torch, np, fixture, inputs, torch.device("cuda"), replay)
         label = "replayed" if replay else "eager"
         check(all(g <= ADAM_TOL for g in gaps.values()),
               f"capturable Adam ({label}) misses the JAX fixture: {gaps}")
-        parts.append(f"{label}: parameters {gaps['params']:.3g}, mu {gaps['mu']:.3g}, "
-                     f"nu {gaps['nu']:.3g}")
+        parts.append(f"{label} ({time.perf_counter() - t0:.2f} s): parameters "
+                     f"{gaps['params']:.3g}, mu {gaps['mu']:.3g}, nu {gaps['nu']:.3g}")
     phase("adam", f"capturable Adam against optax.scale_by_adam with the rate applied, "
           f"{ADAM_UPDATES} updates at betas {ADAM_BETAS} and rates {ADAM_RATES} cut to a "
           f"tenth from update {ADAM_CUT_AT} (largest gaps, parameters absolute, moments "
           f"relative to their tensor's largest; tolerance {ADAM_TOL}): " + "; ".join(parts))
 
 
-def replay_ms(torch, ex, idx, z, lr, rows=None, concat_on=False, chunks=4) -> float:
-    """ms/step of ``chunks`` calls of a chunk executor (its graph replays,
-    with the inputs' copies), synchronised, after one call."""
+def replay_ms(torch, ex, idx, z, lr, rows=None, concat_on=False) -> float:
+    """ms/step of ``REPLAYED_CHUNKS`` calls of a chunk executor (its graph
+    replays, with the inputs' copies), synchronised, after one call."""
     ex(idx, z, lr, lr, pool_idx=rows, concat_on=concat_on)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(chunks):
+    for _ in range(REPLAYED_CHUNKS):
         ex(idx, z, lr, lr, pool_idx=rows, concat_on=concat_on)
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / (chunks * idx.shape[0]) * 1e3
+    return (time.perf_counter() - t0) / (REPLAYED_CHUNKS * idx.shape[0]) * 1e3
 
 
 def in_batch_recycle_phase(torch, np):
@@ -1584,7 +1598,7 @@ def fake_pool_phase(torch, np, out_dir: Path):
     from strainer_gan_tpu_torch.train import steps as ST
     from strainer_gan_tpu_torch.train.loop import Trainer
 
-    args = ["--preset", "strainer_concat_fast", "--epochs", "4", "--max-synth", "4096",
+    args = ["--preset", "strainer_concat_fast", "--epochs", "4", "--max-synth", "3400",
             "--out", str(out_dir), "--checkpoint-every", "1", "--parity-check"]
     phase("fake_pool", "python -m strainer_gan_tpu_torch.cli " + " ".join(args))
     tee = Tee(sys.stdout)
@@ -1958,20 +1972,23 @@ def deferred_phase(torch, np, tr):
         for which in order:
             fn, out = ((gated.graph.launch, live) if which == "g"
                        else (plain.graph.replay, ungated))
-            out.append(time_ms(torch, fn, iters=4, warmup=1) / chunk)
+            out.append(time_ms(torch, fn, iters=REPLAYED_CHUNKS, warmup=1) / chunk)
     phase("deferred", f"a wholly dead gated chunk of {chunk}: {dead:.4f} ms a launch (CUDA "
           f"events, 200 back to back); a live gated step "
           f"{' / '.join(f'{v:.4f}' for v in live)} ms, the ungated replay's step "
-          f"{' / '.join(f'{v:.4f}' for v in ungated)} ms (CUDA events, 4 chunks a "
+          f"{' / '.join(f'{v:.4f}' for v in ungated)} ms (CUDA events, {REPLAYED_CHUNKS} chunks a "
           f"measurement, in the order g u u g g u; {CARD})")
 
 
-EAGER_TIMED = 32  # eager steps timed beside the replays (host-bound, so a few suffice)
+EAGER_TIMED = 8  # eager steps timed beside the replays (host-bound, so a few suffice)
+
+
+BM_EPOCHS = 2  # the chunked phase's and the dp child's batch_mask: epoch 0, then gated
 
 
 def chunked_batch_mask(torch, np, bm):
     """``batch_mask`` at steps_per_dispatch 32 and 1 on the CLI phase's
-    images, gated from epoch 1, for 3 epochs; then replayed against eager
+    images, gated from epoch 1, for ``BM_EPOCHS`` epochs; then replayed against eager
     steps, timed, and the device-busy share of a replayed chunk.  Returns
     the first run's snapshot (``run_snapshot``, taken before the timing)
     and its Trainer."""
@@ -1981,14 +1998,14 @@ def chunked_batch_mask(torch, np, bm):
     from strainer_gan_tpu_torch.train.steps import train_step
 
     base = bm.cfg.replace(strain=dataclasses.replace(bm.cfg.strain, mask_start_epoch=1),
-                          train=dataclasses.replace(bm.cfg.train, epochs=3))
+                          train=dataclasses.replace(bm.cfg.train, epochs=BM_EPOCHS))
     runs = []
     for spd in (base.train.steps_per_dispatch, 1):
         tr = Trainer(base.replace(train=dataclasses.replace(base.train, steps_per_dispatch=spd)),
                      dataset=bm.dataset)
         tr.logger.stream = io.StringIO()
         tr.setup()
-        for e in range(3):
+        for e in range(BM_EPOCHS):
             tr.run_epoch(e)
         runs.append(tr)
     a, b = runs
@@ -1996,7 +2013,8 @@ def chunked_batch_mask(torch, np, bm):
     phase("chunked", same_run(torch, np, a, b, a.logger.stream.getvalue(),
                               b.logger.stream.getvalue(),
 f"batch_mask steps_per_dispatch={a.cfg.train.steps_per_dispatch} vs "
-                              "1, epoch 0 ungated, 1-2 masked") + f"; {graphs(a, 'chunked batch_mask')}")
+                              "1, epoch 0 ungated, 1 masked")
+          + f"; {graphs(a, 'chunked batch_mask')}")
     # the dp phase's run with no group: this run, before the timing below
     snapshot = run_snapshot(torch, a, a.logger.stream.getvalue(), {})
 
@@ -2029,28 +2047,33 @@ f"batch_mask steps_per_dispatch={a.cfg.train.steps_per_dispatch} vs "
             return (time.perf_counter() - t0) / steps * 1e3
 
         label = "masked" if mask_on else "unmasked"
-        times[label] = (ms(replayed, 4, 4 * chunk), ms(eager, EAGER_TIMED, EAGER_TIMED),
-                        ms(replayed, 4, 4 * chunk))
+        times[label] = (ms(replayed, REPLAYED_CHUNKS, REPLAYED_CHUNKS * chunk),
+                        ms(eager, EAGER_TIMED, EAGER_TIMED),
+                        ms(replayed, REPLAYED_CHUNKS, REPLAYED_CHUNKS * chunk))
         if mask_on:
             # the replay alone, between CUDA events: the chunk's device time
             ex(idx, torch.randn((chunk, bs, nz), generator=g, device="cuda"), lr, lr)
-            dev_ms = time_ms(torch, ex.graph.replay, iters=4, warmup=1) / chunk
+            dev_ms = time_ms(torch, ex.graph.replay, iters=REPLAYED_CHUNKS, warmup=1) / chunk
+            t_trace = time.perf_counter()
             with tempfile.TemporaryDirectory() as log_dir:
                 with profiler.trace(log_dir) as prof:
-                    replayed(2)
-                summary = profiler.summarize(prof, steps=2 * chunk)
+                    replayed(1)
+                summary = profiler.summarize(prof, steps=chunk)
+            t_trace = time.perf_counter() - t_trace
     parts = ", ".join(f"{k} {r0:.3f} / {r1:.3f} replayed, {e:.3f} eager"
                       for k, (r0, e, r1) in times.items())
-    phase("chunked", f"ms/step, synchronised, batch {bs} ({CARD}; replayed = 4 chunks of "
+    phase("chunked", f"ms/step, synchronised, batch {bs} ({CARD}; replayed = "
+          f"{REPLAYED_CHUNKS} chunks of "
           f"{chunk} with their noise draws and copies, before / after {EAGER_TIMED} eager "
           "steps): "
           + parts)
     r_masked = (times["masked"][0] + times["masked"][2]) / 2
-    traced = (f"the trace of 2 replayed chunks shows {summary['launches_per_step']:.1f} device "
+    traced = (f"the trace of 1 replayed chunk ({t_trace:.2f} s with its export and summary) "
+              f"shows {summary['launches_per_step']:.1f} device "
               f"operations per step, device busy {summary['device_busy_ms']:.2f} ms of "
               f"{summary['wall_ms']:.2f} ms traced ({summary['busy_share']:.3f})"
               if summary["device_busy_ms"] > 0 else
-              "the trace of 2 replayed chunks shows no device operation (a replay is one "
+              "the trace of 1 replayed chunk shows no device operation (a replay is one "
               "graph launch to the profiler)")
     phase("chunked", f"a replayed masked chunk: {dev_ms:.3f} ms a step of device time "
           f"(CUDA events around the replay alone) against {r_masked:.3f} ms a step through the "
@@ -2257,23 +2280,23 @@ def mlp_eager_steps(torch, tr, idx, z, drop, lr_g, lr_d) -> list:
     return out
 
 
-def mlp_step_ms(torch, tr, idx, z, drop, lr_g, lr_d, chunks: int = 4) -> tuple:
-    """ms/step, synchronised, of ``chunks`` replayed chunks (the inputs'
-    copies included) and of as many steps run eagerly, on one input."""
+def mlp_step_ms(torch, tr, idx, z, drop, lr_g, lr_d) -> tuple:
+    """ms/step, synchronised, of ``REPLAYED_CHUNKS`` replayed chunks (the
+    inputs' copies included) and of one chunk's steps run eagerly, on one
+    input."""
     ex = tr._executors[next(iter(tr._executors))]
     ex(idx, z, lr_g, lr_d, drop=drop)
     mlp_eager_steps(torch, tr, idx[:2], z[:2], [m[:2] for m in drop], lr_g, lr_d)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(chunks):
+    for _ in range(REPLAYED_CHUNKS):
         ex(idx, z, lr_g, lr_d, drop=drop)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    for _ in range(chunks):
-        mlp_eager_steps(torch, tr, idx, z, drop, lr_g, lr_d)
+    mlp_eager_steps(torch, tr, idx, z, drop, lr_g, lr_d)
     torch.cuda.synchronize()
-    n = chunks * idx.shape[0]
-    return (t1 - t0) / n * 1e3, (time.perf_counter() - t1) / n * 1e3
+    n = idx.shape[0]
+    return (t1 - t0) / (REPLAYED_CHUNKS * n) * 1e3, (time.perf_counter() - t1) / n * 1e3
 
 
 def mnist8_phase(torch, np, out_dir: Path):
@@ -2349,12 +2372,13 @@ def mnist8_phase(torch, np, out_dir: Path):
     lr = cfg.train.lr_g
     t_rep, t_eag = mlp_step_ms(torch, tr, idx, z, drop, lr, lr)
     phase("mnist8", f"ms/step, synchronised, batch {bs} ({CARD}): replayed {t_rep:.4f} "
-          f"(4 chunks of {idx.shape[0]}), eager {t_eag:.4f}; Sampler (epoch 1 checkpoint), "
+          f"({REPLAYED_CHUNKS} chunks of {idx.shape[0]}), eager {t_eag:.4f}; Sampler (epoch 1 "
+          "checkpoint), "
           f"256 images as (28, 28, 1) uint8, replayed batches bit-equal to eager ones; "
           f"ms a batch of 64: replayed {rep:.3f}, eager {eag:.3f}")
 
 
-MNIST_FULL_EPOCHS = 10  # and its periodic FID every 10 epochs (shipped: 300 and 100)
+MNIST_FULL_EPOCHS = 3  # and its periodic FID every 3 epochs (shipped: 300 and 100)
 
 
 def mnist_full_phase(torch, np, out_dir: Path):
@@ -2664,7 +2688,7 @@ DP_CHILD = "--dp-child"
 
 
 def dp_config(tmp: Path) -> list:
-    """The dp phase's runs: ``batch_mask`` gated from epoch 1 for 3 epochs
+    """The dp phase's runs: ``batch_mask`` gated from epoch 1 for ``BM_EPOCHS`` epochs
     (the chunked phase's configuration, through a config JSON), and
     ``zscore_loss`` as its phase runs it (its epoch-3 strain deferred)."""
     from strainer_gan_tpu_torch import get_preset
@@ -2674,7 +2698,8 @@ def dp_config(tmp: Path) -> list:
     path = tmp / "batch_mask_gate1.json"
     if not path.exists():  # written once: the child reads it while the parent runs
         path.write_text(cfg.to_json())
-    return [("batch_mask", ["--config", str(path), "--epochs", "3", "--max-synth", "4096"]),
+    return [("batch_mask", ["--config", str(path), "--epochs", str(BM_EPOCHS), "--max-synth",
+                            "4096"]),
             ("zscore_loss", zscore_loss_args(tmp))]
 
 
@@ -2692,7 +2717,7 @@ def run_snapshot(torch, tr, text: str, launches: dict) -> dict:
 
 def masked_replay_ms(torch, tr) -> float:
     """ms/step of the Trainer's masked chunk replayed on seeded indices and
-    noise (4 chunks after one, synchronised)."""
+    noise (``REPLAYED_CHUNKS`` chunks after one, synchronised)."""
     cfg, chunk = tr.cfg, tr.cfg.train.steps_per_dispatch
     key = (chunk, True, not tr.engine.d_bn_eval, True, cfg.model.compute_dtype)
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -2876,16 +2901,19 @@ def tp_variants(torch, grid=None) -> dict:
     return out
 
 
+TP_CHUNK = 8  # steps in the grid's captured chunk (a preset's chunk is 32)
+
+
 def tp_chunk(torch, grid, counts: dict) -> dict:
     """``batch_mask`` at full width (batch 128, bf16), its keep on, on
     ``grid`` (the dp child's 1 x 1 grid), on 4,096 seeded images on the
-    card: from seeded weights a warm-up step, then one chunk of 32 steps
-    through ``ChunkedStep`` (captured once with its tp and dp collectives,
-    replayed), and from the same weights the same warm-up and 32 steps
-    eagerly on the grid.  Returns the tensors where the two runs differ
-    (none, for bit-equality), the collectives the capture recorded, the
-    ms/step of the eager steps and of 4 replayed chunks (after one), each
-    synchronised."""
+    card: from seeded weights a warm-up step, then one chunk of
+    ``TP_CHUNK`` steps through ``ChunkedStep`` (captured once with its tp
+    and dp collectives, replayed), and from the same weights the same
+    warm-up and ``TP_CHUNK`` steps eagerly on the grid.  Returns the
+    tensors where the two runs differ (none, for bit-equality), the
+    collectives the capture recorded, the ms/step of the eager steps and
+    of ``REPLAYED_CHUNKS`` replayed chunks (after one), each synchronised."""
     from strainer_gan_tpu_torch.data import DeviceDataset, normalize_u8
     from strainer_gan_tpu_torch.parallel import mesh as M
     from strainer_gan_tpu_torch.train.steps import ChunkedStep, train_step
@@ -2898,7 +2926,7 @@ def tp_chunk(torch, grid, counts: dict) -> dict:
     runs, out = {}, {}
     for mode in ("eager", "replayed"):
         cfg, gen, disc, opt_g, opt_d, scfg = tp_model(torch, "batch_mask", grid)
-        chunk, bs, lr = cfg.train.steps_per_dispatch, cfg.data.batch_size, cfg.train.lr_d
+        chunk, bs, lr = TP_CHUNK, cfg.data.batch_size, cfg.train.lr_d
         if mode == "eager":  # the same draws for both runs
             idx = torch.stack([torch.randperm(n, generator=g, device="cuda")[:bs]
                                for _ in range(chunk + 1)])
@@ -3011,19 +3039,15 @@ def dp_child(out_dir: str) -> int:
     return 0
 
 
-def dp_start(tmp: Path):
-    """Start the dp phase's child (a launcher's environment of one rank) in
-    the background, its output to files in ``tmp``; returns it and its
-    start time."""
+def dp_start(tmp: Path, rdv):
+    """Start the dp phase's child (rank 0 of the launcher's environment of
+    ``rdv``, a ``parallel.multihost.Rendezvous`` of one rank that the caller
+    holds until the child has ended) in the background, its output to files
+    in ``tmp``; returns it and its start time."""
     import os
-    import socket
 
     dp_config(tmp)
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    env = dict(os.environ, RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
-               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    env = dict(os.environ, **rdv.env(0))
     with open(tmp / "child.out", "w") as out, open(tmp / "child.err", "w") as err:
         proc = subprocess.Popen([sys.executable, str(HERE / "chip_smoke.py"), DP_CHILD,
                                  str(tmp)], env=env, stdout=out, stderr=err)
@@ -3106,7 +3130,7 @@ def dp_phase(torch, np, child_proc, tmp: Path, zl, zl_text: str, bm_run):
     bmc = child["batch_mask"]
     phase("dp", f"child (RANK=0 WORLD_SIZE=1, NCCL; {child['ready_s']:.1f} s to the end of its runs "
           f"beside phases 5-9, {child_s:.1f} s in all): batch_mask gated from "
-          f"epoch 1 for 3 epochs ({sum(r['steps'] for r in bmc['results'])} steps, "
+          f"epoch 1 for {BM_EPOCHS} epochs ({sum(r['steps'] for r in bmc['results'])} steps, "
           f"{bmc['graphs']['replays']} chunks replayed) and zscore_loss epochs 0-3 "
           f"({child['zscore_loss']['graphs']['replays']} replayed) on the rank path: bit-equal "
           f"to the same runs with no group (parameters, BatchNorm buffers, Adam state, losses, "
@@ -3218,28 +3242,35 @@ def main() -> int:
         laps.append((name, time.perf_counter()))
 
     host_staging_phase(np)
+    lap("host_staging")
     results = kernel_phase(torch, port)
+    lap("kernels")
     adam_phase(torch, np)
-    lap("host_staging, kernels, adam")
+    lap("adam")
     jax_fixture_phase(torch, np)
     loss_fixture_phase(torch, np)
+    lap("fixtures")
     k3 = k3_phase(torch)
-    lap("fixtures, k3")
+    lap("k3")
     with tempfile.TemporaryDirectory() as tmp:
         tr, launches, console = slice_phase(torch, np, Path(tmp))
         lap("slice")
         band_phase(torch, np, tr, Path(tmp))
+        lap("band")
         chunked_final(torch, np, tr, console, Path(tmp) / "ckpt")
+        lap("chunked final")
         serve_phase(torch, np, Path(tmp) / "ckpt")
-        lap("band, chunked, serve")
+        lap("serve")
         deferred_phase(torch, np, tr)
         lap("deferred")
     del tr
     for r in results:
         r["launches"] = launches[r["name"]]
-    with tempfile.TemporaryDirectory() as tmp:
+    from strainer_gan_tpu_torch.parallel.multihost import Rendezvous
+
+    with tempfile.TemporaryDirectory() as tmp, Rendezvous(1) as rdv:
         # the dp child trains beside the next phases, then waits for its go
-        child = dp_start(Path(tmp))
+        child = dp_start(Path(tmp), rdv)
         try:
             dbscan_launches, staged = zscore_dbscan_phase(torch, np)
             k3["launches"] = dbscan_launches["neighbor_counts"]
@@ -3247,16 +3278,20 @@ def main() -> int:
             lap("zscore_dbscan")
             loss_space_phases(torch, np, staged)
             del staged
+            lap("loss space")
             zscore_short_phases(torch, np)
+            lap("zscore_elbow, zscore")
             basic_phase(torch, np)
+            lap("basic")
             zl, zl_text = zscore_loss_phase(torch, np, Path(tmp))
-            lap("loss space, zscore_elbow, zscore, basic, zscore_loss")
+            lap("zscore_loss")
             dp_wait_ready(child, Path(tmp))
             lap("waiting for the dp child")
             bm = batch_mask_phase(torch, np)
+            lap("batch_mask")
             bm_run = chunked_batch_mask(torch, np, bm)
             del bm
-            lap("batch_mask, chunked")
+            lap("chunked batch_mask")
             dp_phase(torch, np, child, Path(tmp), zl, zl_text, bm_run)
             lap("dp")
         finally:
@@ -3265,18 +3300,21 @@ def main() -> int:
                 child[0].wait()
     del zl, bm_run
     in_batch_recycle_phase(torch, np)
+    lap("in_batch_recycle")
     with tempfile.TemporaryDirectory() as tmp:
         fake_pool_phase(torch, np, Path(tmp))
-    lap("in_batch_recycle, fake_pool")
+    lap("fake_pool")
     with tempfile.TemporaryDirectory() as tmp:
         mnist8_phase(torch, np, Path(tmp))
+    lap("mnist8")
     with tempfile.TemporaryDirectory() as tmp:
         mnist_full_phase(torch, np, Path(tmp))
-    lap("mnist8, mnist_full")
+    lap("mnist_full")
     fid_phase(torch, np)
+    lap("fid")
     with tempfile.TemporaryDirectory() as tmp:
         eval_phase(torch, np, Path(tmp))
-    lap("fid, eval")
+    lap("eval")
     phase("staging", "host seconds a mixture, native: " + ", ".join(
         f"{name} {s:.2f} ({n})" for name, n, s in STAGING)
         + f"; {sum(s for _, _, s in STAGING):.2f} s in all")

@@ -128,22 +128,12 @@ def ranks_asked(args) -> int:
     return n
 
 
-def _free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _rank_entry(rank: int, argv, world: int, port: int, result_path: str,
-                threads: int) -> None:
-    """A spawned rank: the launcher's environment, then the run; rank 0
-    leaves the results in ``result_path``."""
+def _rank_entry(rank: int, argv, envs, result_path: str, threads: int) -> None:
+    """A spawned rank: its launcher's environment (``envs[rank]``), then the
+    run; rank 0 leaves the results in ``result_path``."""
     import torch
 
-    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
-                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    os.environ.update(envs[rank])
     torch.set_num_threads(threads)
     from .parallel.multihost import shutdown
 
@@ -163,11 +153,13 @@ def spawn(argv, world: int) -> dict:
     import torch
     import torch.multiprocessing as mp
 
+    from .parallel.multihost import Rendezvous
+
     threads = max(1, torch.get_num_threads() // world)  # the ranks share this process's cores
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, Rendezvous(world) as rdv:
         path = os.path.join(tmp, "results.json")
-        mp.spawn(_rank_entry, args=(list(argv), world, _free_port(), path, threads),
-                 nprocs=world, join=True)
+        envs = [rdv.env(r) for r in range(world)]
+        mp.spawn(_rank_entry, args=(list(argv), envs, path, threads), nprocs=world, join=True)
         with open(path) as f:
             return json.load(f)
 

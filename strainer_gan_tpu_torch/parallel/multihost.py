@@ -18,6 +18,17 @@ hosts, ``world // LOCAL_WORLD_SIZE`` (``torchrun`` sets
 ``LOCAL_WORLD_SIZE``; without it every rank is on one host).  A run over
 more than one host stages each rank's sample shard only
 (``shard_bounds``, ``data.pipeline.DeviceDataset.from_rank_local``).
+
+``Rendezvous`` is the launcher's side, and the only way the port starts
+ranks itself (``cli.spawn`` behind ``--dp N``, the tests' spawned ranks,
+``chip_smoke.py``'s ``dp`` child): it hosts the group's ``TCPStore`` on a
+port the OS picks and holds it until the ranks are done, and gives each
+rank a launcher's environment in which ``initialize`` joins that store as
+a client (``TORCHELASTIC_USE_AGENT_STORE=True``, as ``torchrun``'s agent
+store does).  A port picked by binding port 0 and closing the socket
+again would be free for any other process until rank 0 bound it: another
+group handed the same port joins this group's store, and the two groups
+cross-wire, fail to bind or time out.
 """
 from __future__ import annotations
 
@@ -29,6 +40,8 @@ import torch
 import torch.distributed as dist
 
 DEFAULT_TIMEOUT_S = 300
+AGENT_STORE = "TORCHELASTIC_USE_AGENT_STORE"  # torch's rendezvous: every rank a store client
+LOOPBACK = "127.0.0.1"  # a Rendezvous's ranks all run on the launcher's host
 
 
 def _launcher_env() -> Optional[dict]:
@@ -49,6 +62,38 @@ def _launcher_env() -> Optional[dict]:
     return None
 
 
+class Rendezvous:
+    """A group's store, hosted by the launcher on a port the OS picks and
+    held from the pick until ``close`` (or the end of the ``with`` block):
+    no other process can bind the port meanwhile, and only the ranks given
+    ``env`` join it.  Close it once the ranks have left the group, which
+    uses the store while it lives (``new_group``, NCCL's first
+    communicator)."""
+
+    def __init__(self, world: int):
+        self.world = world
+        self.store = dist.TCPStore(LOOPBACK, 0, is_master=True, wait_for_workers=False,
+                                   timeout=datetime.timedelta(seconds=DEFAULT_TIMEOUT_S))
+        self.port = self.store.port
+
+    def env(self, rank: int, local_world: Optional[int] = None) -> dict:
+        """Rank ``rank``'s launcher environment; ``local_world`` ranks a host
+        (by default all of them on this one)."""
+        local_world = self.world if local_world is None else local_world
+        return {"RANK": str(rank), "LOCAL_RANK": str(rank % local_world),
+                "WORLD_SIZE": str(self.world), "LOCAL_WORLD_SIZE": str(local_world),
+                "MASTER_ADDR": LOOPBACK, "MASTER_PORT": str(self.port), AGENT_STORE: "True"}
+
+    def close(self) -> None:
+        self.store = None  # the store's server stops and the port is free again
+
+    def __enter__(self) -> "Rendezvous":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
 def launched() -> bool:
     """Whether a launcher described a process group to this process."""
     return _launcher_env() is not None
@@ -56,7 +101,10 @@ def launched() -> bool:
 
 def initialize(device: Optional[str] = None, timeout_s: float = DEFAULT_TIMEOUT_S) -> bool:
     """Join the launcher's process group (``device``: "cpu" for gloo, else
-    the card and NCCL); returns whether a group is initialised."""
+    the card and NCCL); returns whether a group is initialised.  Under
+    ``TORCHELASTIC_USE_AGENT_STORE=True`` (``Rendezvous.env``, ``torchrun``)
+    every rank joins the launcher's store; otherwise rank 0 hosts it on
+    ``MASTER_PORT``."""
     if dist.is_initialized():
         return True
     env = _launcher_env()

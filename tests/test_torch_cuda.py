@@ -816,26 +816,24 @@ def test_resnet50_fixture_on_the_card(cuda_device):
 @pytest.fixture(scope="module")
 def nccl_runs(tmp_path_factory):
     """``tests/test_torch_dp_worker.py::card_rank_runs`` in a child process under
-    a launcher's environment of one rank (NCCL on the card), with a 600 s
-    limit."""
+    a launcher's environment of one rank (NCCL on the card; the store held
+    here through ``parallel.multihost.Rendezvous``), with a 600 s limit."""
     import os
-    import socket
     import subprocess
     import sys
+
+    from strainer_gan_tpu_torch.parallel.multihost import Rendezvous
 
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the NCCL group runs on the card")
     path = tmp_path_factory.mktemp("nccl") / "runs.pt"
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
     here = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
-               MASTER_PORT=str(port),
-               PYTHONPATH=os.pathsep.join([here, os.path.dirname(here)]))
-    res = subprocess.run([sys.executable, "-c", "import sys, test_torch_dp_worker as W; "
-                          "W.card_rank_runs(sys.argv[1])", str(path)], env=env, cwd=here,
-                         capture_output=True, text=True, timeout=600)
+    with Rendezvous(1) as rdv:
+        env = dict(os.environ, **rdv.env(0),
+                   PYTHONPATH=os.pathsep.join([here, os.path.dirname(here)]))
+        res = subprocess.run([sys.executable, "-c", "import sys, test_torch_dp_worker as W; "
+                              "W.card_rank_runs(sys.argv[1])", str(path)], env=env, cwd=here,
+                             capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
     return torch.load(path, weights_only=False)
 

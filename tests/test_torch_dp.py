@@ -29,12 +29,11 @@ cannot share.
   epochs 1 and 2 are deferred, bit-equal to the same run blocking, on
   every rank, with no group, one rank and two.
 
-Every spawned rank is joined with a 120 s limit and every collective times
-out after 60 s, so a hang fails one test instead of the suite.
+Every spawned rank is started through tests/test_torch_ranks.py (a
+rendezvous this process holds), joined with a 120 s limit, and every
+collective times out after 60 s, so a hang fails one test instead of the
+suite, with each rank's traceback or stacks in the failure.
 """
-import multiprocessing as mp
-import socket
-
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -52,6 +51,7 @@ from strainer_gan_tpu_torch import bridge
 from strainer_gan_tpu_torch.models import Discriminator64, Generator64
 
 import test_torch_dp_worker as W
+import test_torch_ranks as R
 from test_torch_mlp_step import ATOL, RTOL
 
 JOIN_S = 120
@@ -70,27 +70,8 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _spawn(world, tmp, tag):
-    ctx = mp.get_context("spawn")
-    port = _free_port()
-    procs = [ctx.Process(target=W.run_rank, args=(r, world, port, str(tmp), tag))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(JOIN_S)
-    hung = [p for p in procs if p.is_alive()]
-    for p in hung:
-        p.kill()
-        p.join()
-    assert not hung, f"{len(hung)} rank(s) of world size {world} hung past {JOIN_S} s"
-    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+    R.run(W.run_rank, world, tmp, tag, JOIN_S, args=(str(tmp), tag))
     return [torch.load(tmp / f"out_{tag}_{r}.pt", weights_only=False) for r in range(world)]
 
 

@@ -16,7 +16,6 @@ out after the group's limit, so a hang fails one test instead of the suite.
 """
 import dataclasses
 import json
-import multiprocessing as mp
 
 import numpy as np
 import pytest
@@ -25,7 +24,8 @@ import torch
 from strainer_gan_tpu_torch import cli, get_preset
 
 import test_torch_dp_worker as W
-from test_torch_dp import JOIN_S, _free_port
+import test_torch_ranks as R
+from test_torch_dp import JOIN_S
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -54,19 +54,7 @@ def _argv(config_json, out, epochs="2"):
 
 def _launch(argv, tmp_path):
     """``argv`` on two launcher ranks; what each rank's Trainer held."""
-    ctx = mp.get_context("spawn")
-    port = _free_port()
-    procs = [ctx.Process(target=W.run_cli_rank, args=(r, 2, port, str(tmp_path), argv))
-             for r in range(2)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(JOIN_S)
-    hung = [p for p in procs if p.is_alive()]
-    for p in hung:
-        p.kill()
-        p.join()
-    assert not hung and all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+    R.run(W.run_cli_rank, 2, tmp_path, "cli", JOIN_S, args=(str(tmp_path), argv))
     return [torch.load(tmp_path / f"cli_{r}.pt", weights_only=False) for r in range(2)]
 
 

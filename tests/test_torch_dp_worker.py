@@ -1,6 +1,6 @@
 """One rank of the port's data-parallel checks (tests/test_torch_dp.py).
 
-``run_rank`` joins a gloo group of ``world`` ranks (or none), loads the
+``run_rank`` joins the gloo group of its launcher's environment, loads the
 inputs the test wrote (``inputs.pt``: G/D weights, a uint8 batch, its
 source ids, the global noise), runs the cases below and saves what each
 rank computed to ``out_<tag>_<rank>.pt``:
@@ -24,7 +24,6 @@ starts quickly, and it holds no test of its own.
 from __future__ import annotations
 
 import dataclasses
-import datetime
 import os
 
 import numpy as np
@@ -142,29 +141,28 @@ def deferred_snapshot(defer: bool) -> dict:
     return out
 
 
-def run_rank(rank: int, world: int, port: int, tmp: str, tag: str, grouped: bool = True):
+def run_rank(rank: int, tmp: str, tag: str) -> None:
+    """Under a launcher's environment (tests/test_torch_ranks.py): the gloo
+    group, then ``run_cases``."""
+    from strainer_gan_tpu_torch.parallel import multihost as MH
+
     torch.set_num_threads(1)
-    if grouped:
-        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                                world_size=world, rank=rank,
-                                timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    assert MH.initialize("cpu", timeout_s=TIMEOUT_S)
     try:
         inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
         torch.save(run_cases(inputs), os.path.join(tmp, f"out_{tag}_{rank}.pt"))
     finally:
-        if grouped:
-            dist.destroy_process_group()
+        MH.shutdown()
 
 
-def run_cli_rank(rank: int, world: int, port: int, tmp: str, argv) -> None:
-    """``cli.run(argv)`` as one rank of a launcher's group of ``world``; saves
-    what the rank's Trainer holds to ``cli_<rank>.pt``."""
+def run_cli_rank(rank: int, tmp: str, argv) -> None:
+    """``cli.run(argv)`` as one rank of a launcher's group (the environment
+    tests/test_torch_ranks.py gives it); saves what the rank's Trainer holds
+    to ``cli_<rank>.pt``."""
     from strainer_gan_tpu_torch import cli
     from strainer_gan_tpu_torch.parallel.multihost import shutdown
 
     torch.set_num_threads(1)
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
-                      MASTER_PORT=str(port))
     try:
         tr, results = cli.run(argv)
         eng = tr.engine

@@ -34,7 +34,6 @@ after 60 s, so a hang fails these tests instead of the suite.
 """
 import dataclasses
 import io
-import multiprocessing as mp
 import re
 
 import numpy as np
@@ -59,7 +58,7 @@ from strainer_gan_tpu_torch.parallel.multihost import shard_bounds
 
 import test_torch_dp_worker as DW
 import test_torch_multihost_worker as W
-from test_torch_dp import _free_port
+import test_torch_ranks as R
 
 JOIN_S = 240
 WORLD = 2
@@ -177,23 +176,11 @@ def runs(tmp_path_factory):
                   z=torch.from_numpy(rng.standard_normal((DW.B, 100)).astype(np.float32)),
                   order=order, lr=2e-4, **jax_inputs)
     torch.save(inputs, tmp / "inputs.pt")
-    ctx = mp.get_context("spawn")
-    port = _free_port()
-    procs = [ctx.Process(target=W.run_rank, args=(r, WORLD, port, str(tmp)))
-             for r in range(WORLD)]
-    for p in procs:
-        p.start()
+    ranks = R.Ranks(W.run_rank, WORLD, tmp, "multihost", args=(str(tmp),), local_world=1)
     try:
         jout = jtr.run()  # while the ranks train
     finally:
-        for p in procs:
-            p.join(JOIN_S)
-        hung = [p for p in procs if p.is_alive()]
-        for p in hung:
-            p.kill()
-            p.join()
-    assert not hung, f"{len(hung)} rank(s) hung past {JOIN_S} s"
-    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+        ranks.join(JOIN_S)
     outs = [torch.load(tmp / f"out_{r}.pt", weights_only=False) for r in range(WORLD)]
     return dict(ranks=outs, inputs=inputs, jtr=jtr, jout=jout, jtext=jstream.getvalue(),
                 n_trim=n_trim)

@@ -178,12 +178,10 @@ def cli_case(tmp: str) -> dict:
                 eval=results.get("eval"), masks=tr.mask_history)
 
 
-def run_rank(rank: int, world: int, port: int, tmp: str) -> None:
+def run_rank(rank: int, tmp: str) -> None:
     from strainer_gan_tpu_torch.parallel import multihost as MH
 
     torch.set_num_threads(1)
-    os.environ.update(RANK=str(rank), LOCAL_RANK="0", WORLD_SIZE=str(world),
-                      LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
     assert MH.initialize("cpu", timeout_s=TIMEOUT_S)
     try:
         inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)

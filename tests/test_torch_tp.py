@@ -33,7 +33,6 @@ Every other step variant on the grids (the in-step keep, recycling, the
 pool, the MLP steps) and the chunked executor under a grid:
 tests/test_torch_tp_variants.py.
 """
-import multiprocessing as mp
 
 import numpy as np
 import jax
@@ -60,7 +59,8 @@ from strainer_gan_tpu_torch.train.steps import drop_shape, step_config_from, tra
 
 import test_torch_dp_worker as DW
 import test_torch_tp_worker as W
-from test_torch_dp import LR, _compare_ranks, _free_port
+import test_torch_ranks as R
+from test_torch_dp import LR, _compare_ranks
 
 JOIN_S = 120
 # where each bridge layout puts the flax last axis in the torch tensor
@@ -150,20 +150,7 @@ def test_put_state_tp_slices_in_place(jax_setup):
 
 def _spawn(dp, tp, tmp, tag, inputs):
     torch.save(inputs, tmp / "inputs.pt")
-    ctx = mp.get_context("spawn")
-    port = _free_port()
-    procs = [ctx.Process(target=W.run_rank, args=(r, dp, tp, port, str(tmp), tag))
-             for r in range(dp * tp)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(JOIN_S)
-    hung = [p for p in procs if p.is_alive()]
-    for p in hung:
-        p.kill()
-        p.join()
-    assert not hung, f"{len(hung)} rank(s) of the {dp} x {tp} grid hung past {JOIN_S} s"
-    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+    R.run(W.run_rank, dp * tp, tmp, tag, JOIN_S, args=(dp, tp, str(tmp), tag))
     return [torch.load(tmp / f"out_{tag}_{r}.pt", weights_only=False) for r in range(dp * tp)]
 
 

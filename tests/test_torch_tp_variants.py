@@ -37,8 +37,6 @@ JAX steps:
 Every spawned rank is joined with a time limit and every collective times
 out after 60 s, so a hang fails the tests instead of the suite.
 """
-import multiprocessing as mp
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -60,7 +58,8 @@ from strainer_gan_tpu_torch.models import build_models
 
 import test_torch_dp_worker as DW
 import test_torch_tp_worker as W
-from test_torch_dp import LR, _compare_ranks, _free_port
+import test_torch_ranks as R
+from test_torch_dp import LR, _compare_ranks
 from test_torch_mlp_gan import jax_drop_masks
 
 JOIN_S = 240  # from the spawn: the ranks wait while this process runs JAX
@@ -119,25 +118,13 @@ def _variant_inputs(v, preset, state, jdisc, seed):
 
 
 def _start(dp, tp, tmp, tag, chunk):
-    ctx = mp.get_context("spawn")
-    port = _free_port()
-    procs = [ctx.Process(target=W.run_variants_rank, args=(r, dp, tp, port, str(tmp), tag, chunk))
-             for r in range(dp * tp)]
-    for p in procs:
-        p.start()
-    return procs
+    return R.Ranks(W.run_variants_rank, dp * tp, tmp, tag, args=(dp, tp, str(tmp), tag, chunk))
 
 
-def _join(procs, tmp, tag, deadline):
-    for p in procs:
-        p.join(max(1.0, deadline - time.monotonic()))
-    hung = [p for p in procs if p.is_alive()]
-    for p in hung:
-        p.kill()
-        p.join()
-    assert not hung, f"{len(hung)} rank(s) of the {tag} grid hung past {JOIN_S} s"
-    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
-    return [torch.load(tmp / f"out_{tag}_{r}.pt", weights_only=False) for r in range(len(procs))]
+def _join(ranks, tmp, tag):
+    ranks.join(JOIN_S)
+    return [torch.load(tmp / f"out_{tag}_{r}.pt", weights_only=False)
+            for r in range(len(ranks.procs))]
 
 
 def _as_port(preset, s1) -> dict:
@@ -181,7 +168,6 @@ def runs(tmp_path_factory):
                                        for _ in range(W.CHUNK)])),
         z=torch.from_numpy(rng.standard_normal((W.CHUNK, DW.B, 100)).astype(np.float32)))
     torch.save(inputs, tmp / "inputs.pt")
-    deadline = time.monotonic() + JOIN_S
     spawned = {"2x2": _start(2, 2, tmp, "2x2", True), "1x1": _start(1, 1, tmp, "1x1", False)}
 
     def jax_step(v, mesh=None):
@@ -205,7 +191,7 @@ def runs(tmp_path_factory):
         futures["batch_mask_2x2"] = ex.submit(jax_step, "batch_mask", mesh)
         plain = W.variant_runs(inputs)
         jax_out = {k: f.result() for k, f in futures.items()}
-    grids = {tag: _join(procs, tmp, tag, deadline) for tag, procs in spawned.items()}
+    grids = {tag: _join(ranks, tmp, tag) for tag, ranks in spawned.items()}
     initial = {}
     for v in W.VARIANTS:
         initial[v] = {f"G.{k}": t for k, t in inputs[v]["gen"].items()}

@@ -18,7 +18,6 @@ no JAX and holds no test of its own.
 """
 from __future__ import annotations
 
-import datetime
 import os
 
 import torch
@@ -191,8 +190,8 @@ def whole(grid, placement: dict, shards: dict) -> dict:
     return out
 
 
-def run_rank(rank: int, dp: int, tp: int, port: int, tmp: str, tag: str) -> None:
-    _in_group(rank, dp, tp, port, tmp, tag,
+def run_rank(rank: int, dp: int, tp: int, tmp: str, tag: str) -> None:
+    _in_group(rank, dp, tp, tmp, tag,
               lambda inputs, grid: dict(step=step(inputs, grid)))
 
 
@@ -204,25 +203,24 @@ def variant_runs(inputs, grid=None, chunk: bool = False) -> dict:
     return out
 
 
-def run_variants_rank(rank: int, dp: int, tp: int, port: int, tmp: str, tag: str,
-                      chunk: bool) -> None:
-    _in_group(rank, dp, tp, port, tmp, tag,
+def run_variants_rank(rank: int, dp: int, tp: int, tmp: str, tag: str, chunk: bool) -> None:
+    _in_group(rank, dp, tp, tmp, tag,
               lambda inputs, grid: variant_runs(inputs, grid, chunk))
 
 
-def _in_group(rank, dp, tp, port, tmp, tag, fn) -> None:
-    """``fn(inputs, grid)`` as ``rank`` of a gloo group laid out as a dp x tp
-    grid, with the grid's coordinates, saved to ``out_<tag>_<rank>.pt``."""
+def _in_group(rank, dp, tp, tmp, tag, fn) -> None:
+    """``fn(inputs, grid)`` as ``rank`` of the gloo group of its launcher's
+    environment (tests/test_torch_ranks.py), laid out as a dp x tp grid, with
+    the grid's coordinates, saved to ``out_<tag>_<rank>.pt``."""
+    from strainer_gan_tpu_torch.parallel import multihost as MH
     from strainer_gan_tpu_torch.parallel.mesh import make_mesh_2d
 
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            world_size=dp * tp, rank=rank,
-                            timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    assert MH.initialize("cpu", timeout_s=TIMEOUT_S) and MH.world() == dp * tp
     try:
         inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
         grid = make_mesh_2d(dp, tp)
         out = dict(coords=(grid.d, grid.t), **fn(inputs, grid))
         torch.save(out, os.path.join(tmp, f"out_{tag}_{rank}.pt"))
     finally:
-        dist.destroy_process_group()
+        MH.shutdown()
