@@ -10,8 +10,9 @@ mask's ``Epoch N: Filtered CIFAR-10 images: a/b`` (`# 상위 10%...X.py:335-337`
 device tensors until first read, so collecting them never waits for the
 card; only a console print reads scalars back: one fetch for a step's
 print (``log_step``), one for all the prints of a chunk (``log_chunk``),
-with the same text.  Timings are the host's clock between consecutive
-``log_step`` / ``log_chunk`` calls, kept as (seconds, steps) per call and
+with the same text, each a ``host_read.log`` (``obs.profiler``).
+Timings are the host's clock between consecutive ``log_step`` /
+``log_chunk`` calls, kept as (seconds, steps) per call and
 spread evenly over the call's steps (`metrics.py:82-84`); once the launch
 queue is full they follow the device.
 """
@@ -24,6 +25,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from ..parallel.multihost import is_primary
+from .profiler import host_read
 
 PRINTED = ("errD", "errG", "D_x", "D_G_z1", "D_G_z2")
 
@@ -98,7 +100,8 @@ class MetricsLogger:
                  metrics: Dict[str, torch.Tensor]) -> None:
         self._record(metrics, 1)
         if self.log_every and it % self.log_every == 0:
-            vals = torch.stack([metrics[k].to(torch.float32) for k in PRINTED]).tolist()
+            with host_read("log"):
+                vals = torch.stack([metrics[k].to(torch.float32) for k in PRINTED]).tolist()
             self._print(epoch, num_epochs, it, steps, vals)
 
     def log_chunk(self, epoch: int, num_epochs: int, it0: int, steps: int,
@@ -110,8 +113,9 @@ class MetricsLogger:
             return
         js = [j for j in range(n) if (it0 + j) % self.log_every == 0]
         if js:
-            rows = torch.stack([metrics[k].to(torch.float32)[js] for k in PRINTED],
-                               dim=1).tolist()
+            with host_read("log"):
+                rows = torch.stack([metrics[k].to(torch.float32)[js] for k in PRINTED],
+                                   dim=1).tolist()
             for j, vals in zip(js, rows):
                 self._print(epoch, num_epochs, it0 + j, steps, vals)
 

@@ -1,4 +1,4 @@
-"""Profiling and throughput (counterpart of `strainer_gan_tpu/obs/profiler.py`).
+"""Profiling, spans and counters (counterpart of `strainer_gan_tpu/obs/profiler.py`).
 
 * ``trace(log_dir)``: a ``torch.profiler`` trace of the enclosed block, CPU
   and (when the card is there) CUDA activity, written as a Chrome trace
@@ -12,9 +12,29 @@
   anything under ``no_grad``), nor the optimizer's in-place updates; for
   those, ``utils.trees.finite_check`` (``TrainConfig.check_finite``) checks
   the parameters after each epoch.
-* ``measure_throughput``: host-clock seconds per step of a chained step
-  function, the card synchronised before and after the timed steps (the
-  step returns before the card finishes).
+* ``span(name)``: the program's own range, ``strainer.<name>``, around a
+  phase of the epoch, the strain or the prefilter.  While a
+  ``torch.profiler`` session records (``trace``, or any other), it is a
+  ``record_function`` range, in the same trace and on the same clock as
+  the card's activity, so each idle gap of the card falls inside the
+  spans the host was in, and its range on the profiler's clock (Unix
+  nanoseconds, ``time.time_ns``) is also kept in a bounded log,
+  ``recorded_spans()``, for a reader that holds a reduced trace without
+  the host's ranges.  With no session recording it costs one check and
+  enters nothing.  No span is opened inside a CUDA graph capture: they
+  go around an executor's capture and replay calls, never in its body.
+* ``count(name, n)`` / ``counts()``: the program's counters, plain
+  integers that are always on and are only added to where the host
+  already knows the value (no device read): eager steps by reason
+  (``eager.warmup``, ``eager.remainder``, ``eager.tail``,
+  ``eager.per_step``) and host reads by what they read
+  (``host_read.<what>``).  ``counts_since(before)`` is what was counted
+  after a ``counts()`` snapshot; ``Trainer.run_epoch`` returns its
+  epoch's under ``counts``.  Chunks are counted by ``graph_stats`` (the
+  replays on the card), replayed steps are an epoch's steps less its
+  eager ones, grids are ``host_read.grid``.
+* ``host_read(what)``: the span ``host_read.<what>`` and its count, around
+  a read that blocks the host on the card.
 """
 from __future__ import annotations
 
@@ -22,10 +42,73 @@ import contextlib
 import os
 import tempfile
 import time
-from collections import defaultdict
-from typing import Callable, Dict, Iterator, Optional
+from collections import defaultdict, deque
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
+
+SPAN_PREFIX = "strainer."
+_recording = torch._C._autograd._profiler_enabled
+_NO_SPAN = contextlib.nullcontext()
+_COUNTS: Dict[str, int] = defaultdict(int)
+# the newest recorded spans, (name, start ns, end ns): a traced epoch holds
+# a few hundred
+_SPANS: deque = deque(maxlen=1 << 16)
+
+
+class _Span:
+    """A ``record_function`` range whose range is logged when it closes."""
+
+    __slots__ = ("name", "range", "start")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.range = torch.profiler.record_function(name)
+
+    def __enter__(self):
+        self.range.__enter__()
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        _SPANS.append((self.name, self.start, time.time_ns()))
+        return self.range.__exit__(*exc)
+
+
+def span(name: str):
+    """``strainer.<name>`` as a logged ``record_function`` range while a
+    profiler session records; otherwise a context that does nothing."""
+    if not _recording():
+        return _NO_SPAN
+    return _Span(SPAN_PREFIX + name)
+
+
+def recorded_spans() -> List[Tuple[str, int, int]]:
+    """The newest recorded spans as (name, start ns, end ns), in the order
+    they closed; each lies inside its ``record_function`` range."""
+    return list(_SPANS)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``."""
+    _COUNTS[name] += n
+
+
+def counts() -> Dict[str, int]:
+    """A snapshot of every counter."""
+    return dict(_COUNTS)
+
+
+def counts_since(before: Dict[str, int]) -> Dict[str, int]:
+    """What was counted after the snapshot ``before``, nonzero counts only."""
+    return {k: v - before.get(k, 0) for k, v in _COUNTS.items() if v != before.get(k, 0)}
+
+
+def host_read(what: str):
+    """The span ``host_read.<what>``, counted, around one read that blocks
+    the host on the card."""
+    _COUNTS["host_read." + what] += 1
+    return span("host_read." + what)
 
 
 @contextlib.contextmanager
@@ -93,24 +176,3 @@ def debug_nans(enable: bool = True) -> Iterator[None]:
     finally:
         torch.autograd.set_detect_anomaly(prev)
 
-
-def _sync(device: Optional[torch.device]) -> None:
-    if device is not None and device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def measure_throughput(step_fn: Callable, make_args: Callable[[int], tuple], *,
-                       iters: int = 30, warmup: int = 5, items_per_step: int,
-                       device: Optional[torch.device] = None) -> Dict:
-    """Time ``step_fn(*make_args(i))`` over ``iters`` calls after ``warmup``
-    calls; ``device`` is synchronised before and after the timed calls."""
-    for i in range(warmup):
-        step_fn(*make_args(i))
-    _sync(device)
-    t0 = time.perf_counter()
-    for i in range(iters):
-        step_fn(*make_args(warmup + i))
-    _sync(device)
-    dt = time.perf_counter() - t0
-    return dict(seconds_per_step=dt / iters, items_per_second=items_per_step * iters / dt,
-                iters=iters)

@@ -24,7 +24,11 @@ with a float32 band under ``score_precision="band_bf16"``, or all in
 float32), the loss-space masks (per-sample D losses of the whole set, K1
 at their tail, then the GMM or ensemble threshold), or the autoencoder's.
 The strain state is boolean masks over the full device-resident dataset;
-``last_mask`` is the mask of the last strain event.  For
+``last_mask`` is the mask of the last strain event.  Spans
+(``obs.profiler``): ``prefilter.features`` (the trunk's pass),
+``prefilter.zscore`` (K2a, K2b and the mask), ``strain.f32`` (the
+percentile strain scored in float32) and ``host_read.base`` (the base's
+index list); ``score.py`` spans the band path.  For
 ``batch_quantile_mask`` the Trainer records the last step's scores and
 keep mask here (``last_batch_*``) for the parity report.
 
@@ -48,6 +52,7 @@ from ..config import ExperimentConfig
 from ..data.pipeline import DeviceDataset, epoch_batch_indices, normalize_u8
 from ..device import f32_math
 from ..models.autoencoder import ConvAutoEncoder, init_ae_weights
+from ..obs.profiler import host_read, span
 from ..ops import dbscan as DB
 from ..parallel import mesh as M
 from ..train.schedules import clean_ratio_at
@@ -149,15 +154,17 @@ class StrainerEngine:
         if self._features is None:
             if self.feature_fn is None:
                 raise ValueError(f"strainer {self.sc.method!r} needs a feature extractor")
-            self._features = SC.score_features(self.feature_fn, self.dataset,
-                                               self.score_batch)
+            with span("prefilter.features"):
+                self._features = SC.score_features(self.feature_fn, self.dataset,
+                                                   self.score_batch)
         return self._features
 
     def _set_base(self, mask: torch.Tensor) -> None:
         """Record a new permanent base and its compacted index list (one host
         fetch per strain event), so loss scoring skips the dropped samples."""
         self.base_active = mask
-        idx = torch.nonzero(mask).flatten()
+        with host_read("base"):
+            idx = torch.nonzero(mask).flatten()
         self._base_subset = idx if idx.shape[0] < self.dataset.n else None
 
     def _losses(self) -> torch.Tensor:
@@ -185,19 +192,20 @@ class StrainerEngine:
         twice."""
         feats = self._features_full()
         sc = self.sc
-        scores = TH.masked_max_abs_z(feats, None, sc.z_std_mode)
-        if sc.method == "zscore_fixed" or (
-            sc.method == "loss_percentile" and sc.z_threshold is not None
-        ):
-            mask, thr = TH.zscore_threshold_mask(scores, sc.z_threshold, sc.strict_less)
-        elif sc.method == "zscore_elbow" or sc.z_threshold is None:
-            mask, thr = TH.zscore_elbow_mask(scores)
-        elif sc.method == "zscore_dbscan":
-            ratio = DB.dbscan_clean_ratio(feats, sc.dbscan_eps, sc.dbscan_min_samples)
-            self.last_clean_ratio = ratio
-            mask, thr = TH.zscore_quantile_mask(scores, ratio)
-        else:
-            raise AssertionError(sc.method)
+        with span("prefilter.zscore"):
+            scores = TH.masked_max_abs_z(feats, None, sc.z_std_mode)
+            if sc.method == "zscore_fixed" or (
+                sc.method == "loss_percentile" and sc.z_threshold is not None
+            ):
+                mask, thr = TH.zscore_threshold_mask(scores, sc.z_threshold, sc.strict_less)
+            elif sc.method == "zscore_elbow" or sc.z_threshold is None:
+                mask, thr = TH.zscore_elbow_mask(scores)
+            elif sc.method == "zscore_dbscan":
+                ratio = DB.dbscan_clean_ratio(feats, sc.dbscan_eps, sc.dbscan_min_samples)
+                self.last_clean_ratio = ratio
+                mask, thr = TH.zscore_quantile_mask(scores, ratio)
+            else:
+                raise AssertionError(sc.method)
         self.last_threshold = thr
         self.last_scores = scores
         return mask
@@ -236,8 +244,9 @@ class StrainerEngine:
             self.band_cooloff -= 1
             use_band = False
         if not use_band:
-            mask, thr = TH.percentile_refine_mask(self._losses(), loss_ratio,
-                                                  valid=self.base_active)
+            with span("strain.f32"):
+                mask, thr = TH.percentile_refine_mask(self._losses(), loss_ratio,
+                                                      valid=self.base_active)
             self.last_band_stats = None  # the stats describe the band path only
             self.last_score_path = "f32"
             return mask, thr

@@ -36,6 +36,7 @@ from ..data.pipeline import DeviceDataset, normalize_u8
 from ..device import f32_math
 from ..kernels.bce import bce_scores
 from ..models.autoencoder import reconstruction_errors
+from ..obs.profiler import host_read, span
 from ..ops import stats as S
 from ..parallel import mesh as M
 from . import thresholds as TH
@@ -183,6 +184,10 @@ def fused_percentile_refine(disc: torch.nn.Module, dataset: DeviceDataset, loss_
 
     Host reads: the band's size (one), then the kept count and the median
     band's size together (one); a third when the median band is re-scored.
+    Spans: ``strain.bulk`` (the bfloat16 pass), ``strain.band`` (the
+    threshold, the band, its float32 re-score and the decision),
+    ``strain.median`` (the median band's re-score) and ``strain.f32`` (the
+    fallback).
 
     Returns ``(mask, thr, scores, band_stats)``: ``scores`` are the hybrid
     losses (+inf outside ``subset``), ``band_stats`` a (3,) float32 tensor
@@ -205,9 +210,10 @@ def fused_percentile_refine(disc: torch.nn.Module, dataset: DeviceDataset, loss_
         return full
 
     def full_f32(n_rescored):
-        s = to_full(losses(subset, torch.float32))
-        mask, thr = TH.percentile_refine_mask(s, loss_ratio, valid=valid)
-        stats = torch.tensor([float(n_rescored), 1.0, 0.0], device=dev)
+        with span("strain.f32"):
+            s = to_full(losses(subset, torch.float32))
+            mask, thr = TH.percentile_refine_mask(s, loss_ratio, valid=valid)
+            stats = torch.tensor([float(n_rescored), 1.0, 0.0], device=dev)
         return mask, thr, s, stats
 
     def rescore(base, idx):
@@ -220,43 +226,50 @@ def fused_percentile_refine(disc: torch.nn.Module, dataset: DeviceDataset, loss_
             if idx.numel() else torch.zeros((), device=dev)
         return hybrid, drift
 
-    s_bulk = to_full(losses(subset, torch.bfloat16))
-    q = (1.0 - torch.tensor(loss_ratio, dtype=torch.float32, device=dev)) * 100.0
-    big = torch.tensor(torch.finfo(torch.float32).max, dtype=torch.float32, device=dev)
-    masked = torch.where(valid, s_bulk, big)
-    order = torch.argsort(masked, stable=True)
-    xs = masked[order]
-    n_valid = valid.sum()
-    pos_lo = torch.floor(q / 100.0 * torch.clamp_min(n_valid - 1, 0)).to(torch.int64)
-    thr0 = S.interpolate_sorted(xs, n_valid, q)
-    # bf16 rounding is relative to the score, so the band scales with it
-    band = valid & ((s_bulk - thr0).abs() <= band_eps * thr0.abs().clamp_min(1.0))
-    # a sparse neighbourhood can leave a rank the decision interpolates at
-    # (the percentile's, or the fallback's n_valid // 2) outside the
-    # eps-band: re-score small rank windows around both
-    win = torch.arange(-RANK_WINDOW, RANK_WINDOW + 2, device=dev)
-    pos_half = n_valid // 2
-    for p in (pos_lo, pos_half):
-        band[order[torch.clamp(p + win, 0, n - 1)]] = True
-    band &= valid
-    idx = torch.nonzero(band).flatten()
-    n_band = idx.numel()
-    if n_band > cap:
-        return full_f32(n_band)
-    s_hybrid, drift = rescore(s_bulk, idx)
-    mask, thr = TH.percentile_refine_mask(s_hybrid, loss_ratio, valid=valid)
-    # the empty-keep fallback cuts by rank at the median, where bf16 can
-    # misorder dense scores: re-score the median's neighbourhood, when used
-    m0 = xs[torch.clamp(pos_half, 0, n - 1)]
-    band_med = valid & ((s_bulk - m0).abs() <= band_eps * m0.abs().clamp_min(1.0)) & ~band
-    n_kept, n_med = (int(v) for v in torch.stack([
-        (valid & (s_hybrid < thr)).sum(), band_med.sum()]).tolist())
+    with span("strain.bulk"):
+        s_bulk = to_full(losses(subset, torch.bfloat16))
+    with span("strain.band"):
+        q = (1.0 - torch.tensor(loss_ratio, dtype=torch.float32, device=dev)) * 100.0
+        big = torch.tensor(torch.finfo(torch.float32).max, dtype=torch.float32, device=dev)
+        masked = torch.where(valid, s_bulk, big)
+        order = torch.argsort(masked, stable=True)
+        xs = masked[order]
+        n_valid = valid.sum()
+        pos_lo = torch.floor(q / 100.0 * torch.clamp_min(n_valid - 1, 0)).to(torch.int64)
+        thr0 = S.interpolate_sorted(xs, n_valid, q)
+        # bf16 rounding is relative to the score, so the band scales with it
+        band = valid & ((s_bulk - thr0).abs() <= band_eps * thr0.abs().clamp_min(1.0))
+        # a sparse neighbourhood can leave a rank the decision interpolates at
+        # (the percentile's, or the fallback's n_valid // 2) outside the
+        # eps-band: re-score small rank windows around both
+        win = torch.arange(-RANK_WINDOW, RANK_WINDOW + 2, device=dev)
+        pos_half = n_valid // 2
+        for p in (pos_lo, pos_half):
+            band[order[torch.clamp(p + win, 0, n - 1)]] = True
+        band &= valid
+        with host_read("band"):
+            idx = torch.nonzero(band).flatten()
+        n_band = idx.numel()
+        if n_band > cap:
+            return full_f32(n_band)
+        s_hybrid, drift = rescore(s_bulk, idx)
+        mask, thr = TH.percentile_refine_mask(s_hybrid, loss_ratio, valid=valid)
+        # the empty-keep fallback cuts by rank at the median, where bf16 can
+        # misorder dense scores: re-score the median's neighbourhood, when used
+        m0 = xs[torch.clamp(pos_half, 0, n - 1)]
+        band_med = valid & ((s_bulk - m0).abs() <= band_eps * m0.abs().clamp_min(1.0)) & ~band
+        with host_read("kept"):
+            n_kept, n_med = (int(v) for v in torch.stack([
+                (valid & (s_hybrid < thr)).sum(), band_med.sum()]).tolist())
     if n_kept == 0:
         if n_med > cap:
             return full_f32(n_band + n_med)
-        s_hybrid, d_med = rescore(s_hybrid, torch.nonzero(band_med).flatten())
-        drift = torch.maximum(drift, d_med)
-        mask, thr = TH.percentile_refine_mask(s_hybrid, loss_ratio, valid=valid)
+        with span("strain.median"):
+            with host_read("band"):
+                med = torch.nonzero(band_med).flatten()
+            s_hybrid, d_med = rescore(s_hybrid, med)
+            drift = torch.maximum(drift, d_med)
+            mask, thr = TH.percentile_refine_mask(s_hybrid, loss_ratio, valid=valid)
         n_band += n_med
     stats = torch.stack([torch.tensor(float(n_band), device=dev),
                          torch.zeros((), device=dev), drift.to(torch.float32)])

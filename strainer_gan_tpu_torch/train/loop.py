@@ -74,6 +74,20 @@ index rows and for the draws of every step it dispatches, dead ones too).
 ``kernel_launches`` holds how often each CUDA kernel wrapper launched
 during ``run()``.
 
+Spans and counters (``obs.profiler``): ``epoch`` around ``run_epoch``;
+inside it ``epoch.strain`` (``engine.on_epoch_start``), ``epoch.stats``
+(the stats' dispatch and fetch), ``step.eager`` (one per-step step: its
+draws, gather, step and accounting), ``step.chunk`` (one executor call:
+the draws stacked, the replay, the accounting; ``chunk.capture`` inside
+around a first capture), ``epoch.grid`` (``sample()``) and
+``epoch.close`` (everything after the last step); ``host_read.<what>``
+around each read that blocks the host on the card.  Each epoch's result
+holds its own counts (``counts``): eager steps by reason (``warmup``, the
+capture key's warm-up; ``remainder``, a segment's steps short of a
+chunk; ``tail``, the partial last step; ``per_step`` at
+``steps_per_dispatch=1``) and host reads by what they read; the rest
+of its steps ran in chunks (``graph_stats`` counts the replays).
+
 Data parallelism (`loop.py:160-245, 440-460`): whenever a
 ``torch.distributed`` process group is initialised (``parallel``; the
 CLI's ``--dp``), whatever its size, the Trainer takes the rank path: it
@@ -114,6 +128,7 @@ from ..kernels import launch_counts
 from ..models import build_models
 from ..models.features import build_feature_fn
 from ..obs.metrics import MetricsLogger
+from ..obs.profiler import count, counts, counts_since, host_read, span
 from ..data.mixers import Mixture
 from ..parallel import mesh as M
 from ..parallel import multihost as MH
@@ -316,13 +331,15 @@ class Trainer:
         f32, so a persistently concentrated D must not pay it every
         epoch)."""
         host, done = pending
-        if done is not None:
-            done.synchronize()
-        stats = [int(v) for v in host[0].tolist()]
+        with host_read("stats"):
+            if done is not None:
+                done.synchronize()
+            stats = [int(v) for v in host[0].tolist()]
+            mask = host[1].numpy().copy() if len(host) > 1 else None
         if stats[3] and self.engine.last_score_path == "band":
             self.engine.band_cooloff = BAND_COOLOFF_EVENTS
         self._stats = tuple(stats[:3])
-        return self._stats, (host[1].numpy().copy() if len(host) > 1 else None)
+        return self._stats, mask
 
     def _log_strain(self, epoch: int, n_active: int, strain_tp: int, n_contam: int) -> None:
         """The console line and the strain's precision and recall against
@@ -391,6 +408,14 @@ class Trainer:
                             self.cfg.data.batch_size)
 
     def run_epoch(self, epoch: int) -> Dict:
+        before = counts()
+        with span("epoch"):
+            result = self._epoch(epoch)
+        result["counts"] = counts_since(before)
+        self.epoch_results.append(result)
+        return result
+
+    def _epoch(self, epoch: int) -> Dict:
         cfg, s, t = self.cfg, self.cfg.strain, self.cfg.train
         t0 = time.perf_counter()
         mask_on = s.method == "batch_quantile_mask" and epoch >= s.mask_start_epoch
@@ -403,7 +428,8 @@ class Trainer:
             eng = self.engine
             eng.last_batch_scores = eng.last_batch_mask = eng.last_batch_valid = None
         prev_active = self.engine.active
-        active = self.engine.on_epoch_start(epoch)
+        with span("epoch.strain"):
+            active = self.engine.on_epoch_start(epoch)
         strain_event = self._stats is None or active is not prev_active
         collect = self.logger.collect
         sampling = bool(t.sample_every and collect)
@@ -451,12 +477,14 @@ class Trainer:
                 epoch, active, prev_active, key, lr_g, lr_d, concat_on, account, t0)
         else:
             if strain_event:
-                stats, _ = self._fetch_epoch_stats(self._dispatch_epoch_stats(active))
+                with span("epoch.stats"):
+                    stats, _ = self._fetch_epoch_stats(self._dispatch_epoch_stats(active))
                 if active is not prev_active:
                     self._log_strain(epoch, *stats)
             n_active = self._stats[0]
             if collect:
-                self.mask_history.append(active.cpu().numpy())  # waits for the strain
+                with host_read("mask"):  # waits for the strain
+                    self.mask_history.append(active.cpu().numpy())
             strain_seconds = time.perf_counter() - t0
             steps, tail = self._step_counts(n_active)
             self._last_steps = n_active // bs
@@ -464,28 +492,33 @@ class Trainer:
                 self._warn_no_batches(epoch, n_active)
             idx = self.epoch_indices(epoch, active, steps)
 
-            def run_one(i):
-                # the global step's draws; the rank takes its lanes
-                _, z, rows, drop = rank_inputs(
-                    self.scfg, idx[i], self.step_noise(epoch, i),
-                    self.step_pool_rows(epoch, i) if pooled else None,
-                    self.step_dropout(epoch, i))
-                u8, src = self.dataset.batch(idx[i])
+            def run_one(i, reason):
                 valid = tail if (tail and i == steps - 1) else None
-                m = train_step(
-                    self.gen, self.disc, self.opt_g, self.opt_d, normalize_u8(u8, torch.float32),
-                    src, z, lr_g, lr_d, self.scfg, d_train=d_train,
-                    lane_count=valid, mask_on=gate, fake_pool=self.fake_pool,
-                    pool_idx=rows, concat_on=concat_on, drop_masks=drop,
-                )
-                account(m, i, 1, steps, stacked=False, valid=valid)
+                count("eager." + ("per_step" if chunk == 1 else
+                                  "tail" if valid is not None else reason))
+                with span("step.eager"):
+                    # the global step's draws; the rank takes its lanes
+                    _, z, rows, drop = rank_inputs(
+                        self.scfg, idx[i], self.step_noise(epoch, i),
+                        self.step_pool_rows(epoch, i) if pooled else None,
+                        self.step_dropout(epoch, i))
+                    u8, src = self.dataset.batch(idx[i])
+                    m = train_step(
+                        self.gen, self.disc, self.opt_g, self.opt_d,
+                        normalize_u8(u8, torch.float32), src, z, lr_g, lr_d, self.scfg,
+                        d_train=d_train, lane_count=valid, mask_on=gate,
+                        fake_pool=self.fake_pool, pool_idx=rows, concat_on=concat_on,
+                        drop_masks=drop,
+                    )
+                    account(m, i, 1, steps, stacked=False, valid=valid)
 
             def run_chunk(i, ex):
-                z, rows, drop = self._stacked_draws(
-                    [self._step_draws(epoch, i + j, pooled) for j in range(chunk)])
-                # a copy: the next chunk reuses the buffers
-                account(ex(idx[i:i + chunk], z, lr_g, lr_d, pool_idx=rows,
-                           concat_on=concat_on, drop=drop), i, chunk, steps)
+                with span("step.chunk"):
+                    z, rows, drop = self._stacked_draws(
+                        [self._step_draws(epoch, i + j, pooled) for j in range(chunk)])
+                    # a copy: the next chunk reuses the buffers
+                    account(ex(idx[i:i + chunk], z, lr_g, lr_d, pool_idx=rows,
+                               concat_on=concat_on, drop=drop), i, chunk, steps)
 
             # segments end right after each step whose global iteration is a
             # sample point (`#%basic.py:300-304`; `loop.py:527-561`): full
@@ -501,62 +534,70 @@ class Trainer:
                 limit = boundary - (1 if (tail and boundary == steps) else 0)
                 while chunk > 1 and pos + chunk <= limit:
                     if key not in self._executors:
-                        run_one(pos)  # the key's warm-up: a step of the run
+                        run_one(pos, "warmup")  # the key's warm-up: a step of the run
                         self._add_executor(key, metrics)
                         pos += 1
                         continue
                     run_chunk(pos, self._executors[key])
                     pos += chunk
                 while pos < boundary:
-                    run_one(pos)
+                    run_one(pos, "remainder")
                     pos += 1
                 if sample_here:
+                    with span("epoch.grid"):
+                        self.img_list.append(self.sample())
+        with span("epoch.close"):
+            n_active = self._stats[0]
+            self._iters += steps
+            # and after the last iteration of the last epoch, unless that one
+            # was a sample point already (`#%basic.py:301`, an ``or``)
+            if sampling and steps and epoch == t.epochs - 1 \
+                    and (self._iters - 1) % t.sample_every != 0:
+                with span("epoch.grid"):
                     self.img_list.append(self.sample())
-        n_active = self._stats[0]
-        self._iters += steps
-        # and after the last iteration of the last epoch, unless that one
-        # was a sample point already (`#%basic.py:301`, an ``or``)
-        if sampling and steps and epoch == t.epochs - 1 \
-                and (self._iters - 1) % t.sample_every != 0:
-            self.img_list.append(self.sample())
-        total_contam = filtered_contam = 0
-        if mask_on:
-            # one host fetch per epoch for both sums (`loop.py:719-727`)
-            total_contam, filtered_contam = counters.tolist()
-            self.logger.log_contamination(epoch, filtered_contam, total_contam)
-        if gate and metrics is not None:
-            # the last step's scores and mask for the parity report; a
-            # partial tail's valid lanes are its first ``lanes``
-            self.engine.last_batch_scores = metrics["score_probs"]
-            self.engine.last_batch_mask = metrics["keep_mask"]
-            self.engine.last_batch_valid = bs if lanes is None else lanes
-        ev = cfg.eval
-        if ev.fid and ev.fid_every_epochs and (epoch + 1) % ev.fid_every_epochs == 0 \
-                and (M.is_primary() or self.dataset.sharded):
-            # the periodic FID (`# 1,2,8.py:333-359`; `loop.py:738-753`); the
-            # rows it reads gathered on every rank of a sharded dataset
-            from ..eval.suite import eval_rows, evaluate_run
+            total_contam = filtered_contam = 0
+            if mask_on:
+                # one host fetch per epoch for both sums (`loop.py:719-727`)
+                with host_read("contam"):
+                    total_contam, filtered_contam = counters.tolist()
+                self.logger.log_contamination(epoch, filtered_contam, total_contam)
+            if gate and metrics is not None:
+                # the last step's scores and mask for the parity report; a
+                # partial tail's valid lanes are its first ``lanes``
+                self.engine.last_batch_scores = metrics["score_probs"]
+                self.engine.last_batch_mask = metrics["keep_mask"]
+                self.engine.last_batch_valid = bs if lanes is None else lanes
+            ev = cfg.eval
+            if ev.fid and ev.fid_every_epochs and (epoch + 1) % ev.fid_every_epochs == 0 \
+                    and (M.is_primary() or self.dataset.sharded):
+                # the periodic FID (`# 1,2,8.py:333-359`; `loop.py:738-753`); the
+                # rows it reads gathered on every rank of a sharded dataset
+                from ..eval.suite import eval_rows, evaluate_run
 
-            n_fid = min(ev.fid_n_samples, self.dataset.n)
-            rows = eval_rows(self.dataset, n_fid)
-            if M.is_primary():
-                fid = evaluate_run(cfg, self.gen, rows, n_samples=n_fid)
-                self.fid_history.append((epoch, fid.get("fid_real")))
-                self.logger.stream.write(f"Epoch {epoch + 1}: FID = {fid.get('fid_real')}\n")
-        if losses:
-            # the reference's per-epoch ``epoch_losses`` (`# 1,2,8.py:300-303`)
-            self.epoch_loss_history.append(torch.cat(losses).cpu().numpy())
-        if t.check_finite and not finite_check(self.gen, self.disc):
-            raise FloatingPointError(
-                f"non-finite parameters detected after epoch {epoch} — training "
-                "diverged (enable smaller lr or f32 compute)")
-        self.engine.on_epoch_end(epoch)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        result = dict(steps=steps, active=n_active, lr_g=lr_g, lr_d=lr_d,
-                      filtered_contam=filtered_contam, total_contam=total_contam, last=metrics,
-                      seconds=time.perf_counter() - t0, strain_seconds=strain_seconds)
-        self.epoch_results.append(result)
+                n_fid = min(ev.fid_n_samples, self.dataset.n)
+                rows = eval_rows(self.dataset, n_fid)
+                if M.is_primary():
+                    fid = evaluate_run(cfg, self.gen, rows, n_samples=n_fid)
+                    self.fid_history.append((epoch, fid.get("fid_real")))
+                    self.logger.stream.write(f"Epoch {epoch + 1}: FID = {fid.get('fid_real')}\n")
+            if losses:
+                # the reference's per-epoch ``epoch_losses`` (`# 1,2,8.py:300-303`)
+                with host_read("history"):
+                    self.epoch_loss_history.append(torch.cat(losses).cpu().numpy())
+            if t.check_finite:
+                with host_read("finite"):
+                    finite = finite_check(self.gen, self.disc)
+                if not finite:
+                    raise FloatingPointError(
+                        f"non-finite parameters detected after epoch {epoch} — training "
+                        "diverged (enable smaller lr or f32 compute)")
+            self.engine.on_epoch_end(epoch)
+            if self.device.type == "cuda":
+                with host_read("sync"):
+                    torch.cuda.synchronize(self.device)
+            result = dict(steps=steps, active=n_active, lr_g=lr_g, lr_d=lr_d,
+                          filtered_contam=filtered_contam, total_contam=total_contam, last=metrics,
+                          seconds=time.perf_counter() - t0, strain_seconds=strain_seconds)
         return result
 
     def _step_draws(self, epoch: int, i: int, pooled: bool):
@@ -597,7 +638,8 @@ class Trainer:
         pooled = self.fake_pool is not None
         max_steps = self._step_capacity()
         rows = max(1, -(-max_steps // chunk)) * chunk
-        pending = self._dispatch_epoch_stats(active, with_mask=self.logger.collect)
+        with span("epoch.stats"):
+            pending = self._dispatch_epoch_stats(active, with_mask=self.logger.collect)
         idx = self.epoch_indices(epoch, active, rows)
         n_valid, tail_dev = device_full_and_tail(active, bs).unbind()
         gated = self._gated_executor(key)
@@ -612,17 +654,19 @@ class Trainer:
         outs = []
 
         def dispatch(c):
-            draw_upto((c + 1) * chunk)
-            z, rows_c, drop = self._stacked_draws(draws[c * chunk:(c + 1) * chunk])
-            outs.append(gated(idx[c * chunk:(c + 1) * chunk], z, lr_g, lr_d, c * chunk,
-                              n_valid, pool_idx=rows_c, concat_on=concat_on, drop=drop))
+            with span("step.chunk"):
+                draw_upto((c + 1) * chunk)
+                z, rows_c, drop = self._stacked_draws(draws[c * chunk:(c + 1) * chunk])
+                outs.append(gated(idx[c * chunk:(c + 1) * chunk], z, lr_g, lr_d, c * chunk,
+                                  n_valid, pool_idx=rows_c, concat_on=concat_on, drop=drop))
 
         guess = self._last_steps if self._last_steps is not None else max_steps
         guess = min(max(guess, 1), max_steps)
         for c in range(-(-guess // chunk)):
             dispatch(c)
         # the stats' wait rides under the chunks' device time
-        stats, mask = self._fetch_epoch_stats(pending)
+        with span("epoch.stats"):
+            stats, mask = self._fetch_epoch_stats(pending)
         strain_seconds = time.perf_counter() - t0
         n_active = stats[0]
         if mask is not None:
@@ -641,14 +685,15 @@ class Trainer:
             dispatch(len(outs))
         m_tail = None
         if tail:
-            # the gated partial tail, after every live full chunk: its index
-            # row ``n_valid`` taken on the device, its draws step ``full``'s
-            draw_upto(steps)
-            z, rows_t, drop = self._stacked_draws(draws[full:full + 1])
-            row = torch.clamp(n_valid, max=rows - 1).reshape(1)
-            m_tail = self._gated_executor(key, tail=True)(
-                idx.index_select(0, row), z, lr_g, lr_d, 0, tail_dev, pool_idx=rows_t,
-                concat_on=concat_on, drop=drop)
+            with span("step.chunk"):
+                # the gated partial tail, after every live full chunk: its index
+                # row ``n_valid`` taken on the device, its draws step ``full``'s
+                draw_upto(steps)
+                z, rows_t, drop = self._stacked_draws(draws[full:full + 1])
+                row = torch.clamp(n_valid, max=rows - 1).reshape(1)
+                m_tail = self._gated_executor(key, tail=True)(
+                    idx.index_select(0, row), z, lr_g, lr_d, 0, tail_dev, pool_idx=rows_t,
+                    concat_on=concat_on, drop=drop)
         if steps < len(draws):  # the dispatches drew past the live steps
             at = steps - steps % chunk
             for g, st in zip((self.rng, self.pool_rng, self.drop_rng), kept[at]):
@@ -695,4 +740,5 @@ class Trainer:
         imgs = imgs.to(torch.float32)
         if imgs.dim() == 4:
             imgs = imgs.permute(0, 2, 3, 1)
-        return imgs.cpu().numpy()
+        with host_read("grid"):
+            return imgs.cpu().numpy()

@@ -62,6 +62,7 @@ import torch
 
 from ..data.pipeline import normalize_u8
 from ..kernels.gated_graph import GatedGraph
+from ..obs.profiler import span
 from ..ops import losses as L
 from ..ops import stats as S
 from ..parallel import mesh as M
@@ -529,7 +530,8 @@ class ChunkedStep:
         ``out``."""
         if self.device.type == "cuda":
             if self.graph is None:
-                self._capture()
+                with span("chunk.capture"):
+                    self._capture()
             else:
                 self._check_pointers()
             self._launch()

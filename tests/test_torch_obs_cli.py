@@ -4,8 +4,7 @@
 * ``obs/profiler.trace`` writes a Chrome trace of the enclosed block and
   ``summarize`` reads it (on the CPU there are no device operations, so the
   busy share is 0; on the card ``chip_smoke.py`` prints it);
-  ``debug_nans`` raises on a NaN gradient and restores the mode;
-  ``measure_throughput`` counts its steps.
+  ``debug_nans`` raises on a NaN gradient and restores the mode.
 * ``batch_mask``, ``loss_gmm``, ``loss_ensemble`` and ``autoencoder`` run
   through ``python -m strainer_gan_tpu_torch.cli`` on the CPU at a small
   size, with the parity report, and ``--list`` shows them.
@@ -54,13 +53,6 @@ def test_debug_nans_raises_and_restores():
         with profiler.debug_nans():
             torch.sqrt(x).sum().backward()
     assert torch.is_anomaly_enabled() == before
-
-
-def test_measure_throughput_counts_steps():
-    calls = []
-    out = profiler.measure_throughput(lambda i: calls.append(i), lambda i: (i,), iters=4,
-                                      warmup=2, items_per_step=8)
-    assert calls == list(range(6)) and out["iters"] == 4 and out["items_per_second"] > 0
 
 
 def test_contamination_line_is_the_jax_text():
