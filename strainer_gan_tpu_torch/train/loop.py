@@ -25,12 +25,16 @@ launch fails raises; it never becomes a blocking one.
 The epoch is cut into segments that end right after each fixed-noise
 sample point (``sample_every``); each segment runs as full chunks of
 ``steps_per_dispatch`` steps through ``steps.ChunkedStep`` (on the card,
-one CUDA graph replay a chunk), then a per-step remainder; the
-``drop_last=False`` partial tail always runs per step, lane-masked.  The
-first chunk of a capture key (chunk, ``mask_on``, ``d_train``, stem
-sharing, compute type) is preceded by one per-step step of the run with
-that key, its warm-up: nothing is trained that the per-step path would
-not train.  ``steps_per_dispatch=1`` is the per-step loop.  Executors are
+one CUDA graph replay a chunk), then the remainder, the steps short of a
+chunk, as one launch of the key's gated chunk (``GatedChunkedStep`` with
+``c0`` its first step and ``bound`` its end: only its live steps run);
+the ``drop_last=False`` partial tail, lane-masked, is one launch of the
+key's gated tail.  The first chunk of a capture key (chunk, ``mask_on``,
+``d_train``, stem sharing, compute type) is preceded by one per-step step
+of the run with that key, its warm-up: nothing is trained that the
+per-step path would not train.  Before that warm-up, and on a
+sample-sharded dataset, the remainder and the tail run step by step.
+``steps_per_dispatch=1`` is the per-step loop.  Executors are
 cached per Trainer and share one graph memory pool; ``drop_captures``
 empties the cache, and every ``load_state_dict`` of either optimizer
 (``checkpoint.restore_checkpoint``, ``bridge.load_adam_from_flax``) calls
@@ -79,14 +83,17 @@ inside it ``epoch.strain`` (``engine.on_epoch_start``), ``epoch.stats``
 (the stats' dispatch and fetch), ``step.eager`` (one per-step step: its
 draws, gather, step and accounting), ``step.chunk`` (one executor call:
 the draws stacked, the replay, the accounting; ``chunk.capture`` inside
-around a first capture), ``epoch.grid`` (``sample()``) and
+around a first capture), ``step.remainder`` (one launch of a gated
+remainder or tail, the same parts), ``epoch.grid`` (``sample()``) and
 ``epoch.close`` (everything after the last step); ``host_read.<what>``
 around each read that blocks the host on the card.  Each epoch's result
-holds its own counts (``counts``): eager steps by reason (``warmup``, the
-capture key's warm-up; ``remainder``, a segment's steps short of a
-chunk; ``tail``, the partial last step; ``per_step`` at
-``steps_per_dispatch=1``) and host reads by what they read; the rest
-of its steps ran in chunks (``graph_stats`` counts the replays).
+holds its own counts (``counts``): eager steps by reason (``eager.warmup``,
+the capture key's warm-up; ``eager.remainder``, a segment's steps short
+of a chunk; ``eager.tail``, the partial last step; ``eager.per_step`` at
+``steps_per_dispatch=1``), the gated launches' live steps
+(``gated.remainder``, ``gated.tail``) and host reads by what they read;
+the rest of its steps ran in full chunks (``graph_stats`` counts the
+replays, gated launches included).
 
 Data parallelism (`loop.py:160-245, 440-460`): whenever a
 ``torch.distributed`` process group is initialised (``parallel``; the
@@ -232,8 +239,8 @@ class Trainer:
         self._stats = None  # (n_active, true-positive removals, n_contaminants)
         self._last_steps = None  # the last epoch's full steps: a deferred epoch's guess
         self._pinned: Dict[tuple, torch.Tensor] = {}  # the stats' host buffers
-        # chunk executors by capture key (the gated chunks and gated tails of
-        # the deferred path apart), their shared graph pool and counts
+        # chunk executors by capture key (the gated chunks and gated tails
+        # apart), their shared graph pool and counts
         self._executors: Dict[tuple, ChunkedStep] = {}
         self._gated: Dict[tuple, GatedChunkedStep] = {}
         self._gated_tails: Dict[tuple, GatedChunkedStep] = {}
@@ -520,9 +527,42 @@ class Trainer:
                     account(ex(idx[i:i + chunk], z, lr_g, lr_d, pool_idx=rows,
                                concat_on=concat_on, drop=drop), i, chunk, steps)
 
+            def run_remainder(i, n):
+                """Steps ``i`` to ``i + n - 1`` (``n`` short of a chunk) as one
+                launch of the key's gated chunk: only the live steps' draws,
+                the dead rows zeros, which no step reads."""
+                count("gated.remainder", n)
+                with span("step.remainder"):
+                    z, rows, drop = self._stacked_draws(
+                        [self._step_draws(epoch, i + j, pooled) for j in range(n)])
+
+                    def pad(t):
+                        return None if t is None else torch.cat(
+                            [t, t.new_zeros((chunk - n,) + tuple(t.shape[1:]))])
+
+                    m = self._gated_executor(key)(
+                        pad(idx[i:i + n]), pad(z), lr_g, lr_d, i, i + n, pool_idx=pad(rows),
+                        concat_on=concat_on, drop=[pad(d) for d in drop])
+                    account({k: v[:n] for k, v in m.items()}, i, n, steps)
+
+            def run_tail(i):
+                """The partial tail step ``i`` as one launch of the key's
+                gated tail, its ``tail`` lanes live."""
+                count("gated.tail")
+                with span("step.remainder"):
+                    z, rows, drop = self._stacked_draws([self._step_draws(epoch, i, pooled)])
+                    m = self._gated_executor(key, tail=True)(
+                        idx[i:i + 1], z, lr_g, lr_d, 0, tail, pool_idx=rows,
+                        concat_on=concat_on, drop=drop)
+                    account({k: v[0] for k, v in m.items()}, i, 1, steps, stacked=False,
+                            valid=tail)
+
             # segments end right after each step whose global iteration is a
             # sample point (`#%basic.py:300-304`; `loop.py:527-561`): full
-            # chunks, then the remainder step by step
+            # chunks, then the remainder, and the partial tail by itself; once
+            # the key has had its warm-up (so chunk > 1), each of the last two
+            # is one launch of its gated graph (the conditions of the deferred
+            # path's gated chunks), before that step by step
             pos = 0
             while pos < steps:
                 if sampling:
@@ -540,8 +580,18 @@ class Trainer:
                         continue
                     run_chunk(pos, self._executors[key])
                     pos += chunk
-                while pos < boundary:
+                gated = key in self._executors and not self.dataset.sharded
+                if gated and pos < limit:
+                    run_remainder(pos, limit - pos)
+                    pos = limit
+                while pos < limit:
                     run_one(pos, "remainder")
+                    pos += 1
+                if pos < boundary:  # the partial tail
+                    if gated:
+                        run_tail(pos)
+                    else:
+                        run_one(pos, "remainder")
                     pos += 1
                 if sample_here:
                     with span("epoch.grid"):

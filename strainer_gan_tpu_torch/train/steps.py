@@ -56,7 +56,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import time
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -599,13 +599,16 @@ class GatedChunkedStep(ChunkedStep):
         self.tail = tail
         self.c0 = torch.zeros((), dtype=torch.int64, device=self.device)
         self.bound = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._given = (0, 0)  # the last call's c0 and bound, as given
 
     def _lanes(self) -> Optional[torch.Tensor]:
         return self.bound if self.tail else None
 
     def _body(self) -> None:
-        live = int(self.bound) - int(self.c0)  # the CPU path: a host read
-        for j in range(min(live, self.chunk)):
+        # the CPU path: the predicate on the host, a read only of a bound
+        # given as a device tensor
+        c0, bound = self._given
+        for j in range(min(int(bound) - c0, self.chunk)):
             self._step(j, self._lanes())
 
     def _capture(self) -> None:
@@ -641,16 +644,20 @@ class GatedChunkedStep(ChunkedStep):
         self._ptrs = self._pointers()
 
     def __call__(self, idx: torch.Tensor, z: torch.Tensor, lr_g: float, lr_d: float,
-                 c0: int, bound: torch.Tensor, pool_idx: Optional[torch.Tensor] = None,
-                 concat_on: bool = False,
+                 c0: int, bound: Union[int, torch.Tensor],
+                 pool_idx: Optional[torch.Tensor] = None, concat_on: bool = False,
                  drop: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         """``ChunkedStep.__call__`` with the chunk's first global step ``c0``
         (a host int) and the live count ``bound`` (a 0-d device tensor,
-        copied on the device); returns the stacked metrics, live rows
-        first."""
+        copied on the device, or a host int, filled as ``c0`` is); returns
+        the stacked metrics, live rows first."""
         self._fill(idx, z, lr_g, lr_d, pool_idx, concat_on, drop)
+        self._given = (c0, bound)
         self.c0.fill_(c0)
-        self.bound.copy_(bound)
+        if isinstance(bound, torch.Tensor):
+            self.bound.copy_(bound)
+        else:
+            self.bound.fill_(bound)
         return self._run()
 
     def _launch(self) -> None:

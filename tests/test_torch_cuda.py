@@ -418,6 +418,15 @@ def _graph_trainer(cfg, dataset=None):
     return tr
 
 
+def _captured_once(tr):
+    """The number of ``tr``'s capture keys, after checking that each of
+    its executors (a key's chunk, and the gated chunk and gated tail of its
+    remainders and tail) was captured once."""
+    gs = tr.graph_stats
+    assert gs["captures"] == len(tr._executors) + len(tr._gated) + len(tr._gated_tails)
+    return len(tr._executors)
+
+
 def _assert_bit_equal(a, b):
     for name in ("gen", "disc", "opt_g", "opt_d"):
         sa, sb = getattr(a, name).state_dict(), getattr(b, name).state_dict()
@@ -454,10 +463,10 @@ def test_chunked_replay_equals_eager(cuda_device, preset):
     _assert_bit_equal(a, b)
     assert a.graph_stats["replays"] > 0 and b.graph_stats["replays"] == 0
     if preset == "basic":
-        assert a.graph_stats["captures"] == 1  # the LR cut needs no new capture
+        assert _captured_once(a) == 1  # the LR cut needs no new capture
         assert get_lr(a.opt_d) == get_lr(b.opt_d) == pytest.approx(a.cfg.train.lr_d * 0.1)
     else:
-        assert a.graph_stats["captures"] == 2  # ungated and gated
+        assert _captured_once(a) == 2  # ungated and gated
         assert a.epoch_results[1]["total_contam"] == b.epoch_results[1]["total_contam"] > 0
 
 
@@ -474,7 +483,7 @@ def test_d_train_flip_captures_again(cuda_device):
         runs.append(tr)
     a, b = runs
     _assert_bit_equal(a, b)
-    assert a.graph_stats["captures"] == 2
+    assert _captured_once(a) == 2
     assert {k[2] for k in a._executors} == {True, False}
 
 
@@ -573,11 +582,11 @@ def test_fake_concat_replay_equals_eager(cuda_device, preset):
     _assert_bit_equal(a, b)
     assert a.graph_stats["replays"] > 0 and b.graph_stats["replays"] == 0
     if preset == "in_batch_recycle":
-        assert a.graph_stats["captures"] == 2
+        assert _captured_once(a) == 2
         assert torch.equal(a.engine.last_batch_mask, b.engine.last_batch_mask)
         assert int(a.engine.last_batch_mask.sum()) < a.engine.last_batch_valid
     else:
-        assert a.graph_stats["captures"] == 1
+        assert _captured_once(a) == 1
         assert a.fake_pool.is_cuda and torch.equal(a.fake_pool, b.fake_pool)
 
 
@@ -690,7 +699,7 @@ def test_capture_holds_the_collector_off(cuda_device, monkeypatch):
 
     old = _graph_trainer(_graph_cfg("basic", 4, sample_every=0))
     old.run_epoch(0)
-    assert old.graph_stats["captures"] == 1
+    assert _captured_once(old) == 1
     dead = weakref.ref(old)
     del old  # cyclic garbage from here on
     body, seen = ST.ChunkedStep._body, []
@@ -704,7 +713,7 @@ def test_capture_holds_the_collector_off(cuda_device, monkeypatch):
     tr.run_epoch(0)
     assert seen == [(False, True)]  # the capture's only body call
     assert gc.isenabled()
-    assert tr.graph_stats["captures"] == 1 and tr.graph_stats["replays"] > 0
+    assert _captured_once(tr) == 1 and tr.graph_stats["replays"] > 0
 
 
 def _deferred_cfg(defer):
@@ -745,14 +754,16 @@ def test_deferred_final_on_the_card(cuda_device):
 
 
 @pytest.mark.cuda
-def test_failed_gated_capture_raises(cuda_device, monkeypatch):
+@pytest.mark.parametrize("path", ["blocking", "deferred"])
+def test_failed_gated_capture_raises(cuda_device, monkeypatch, path):
     """A gated step that reads a value back to the host cannot be captured:
-    the deferred epoch raises, and does not run as a blocking epoch."""
+    the epoch raises, and no step runs in the gated graph's place.  On the
+    blocking path the key's first gated launch (its first remainder or
+    tail, epoch 0) captures; a deferred epoch does not run as a blocking
+    one (its key's gated graphs forgotten after two epochs, so that it
+    captures them itself)."""
     from strainer_gan_tpu_torch.train import steps as ST
 
-    tr = _graph_trainer(_deferred_cfg(True))
-    for e in range(2):
-        tr.run_epoch(e)
     body = ST.step_body
 
     def reads_back(*args, **kwargs):
@@ -760,12 +771,34 @@ def test_failed_gated_capture_raises(cuda_device, monkeypatch):
         float(m["errD"])  # a host read: illegal while a stream is capturing
         return m
 
-    monkeypatch.setattr(ST, "step_body", reads_back)
-    with pytest.raises(Exception):
-        tr.run_epoch(2)
-    gs = tr.graph_stats
-    assert gs["deferred_epochs"] == 1 and gs["blocking_epochs"] == 2
-    assert gs["conditional_nodes"] == 0 and gs["gated_replays"] == 0
+    tr = _graph_trainer(_deferred_cfg(path == "deferred"))
+    if path == "blocking":
+        capture = ST.GatedChunkedStep._capture
+
+        def failing(self):
+            monkeypatch.setattr(ST, "step_body", reads_back)
+            capture(self)
+
+        monkeypatch.setattr(ST.GatedChunkedStep, "_capture", failing)
+        with pytest.raises(Exception):
+            tr.run_epoch(0)
+        gs = tr.graph_stats
+        # the warm-up step and whole chunks ran; nothing of the remainder
+        assert tr.logger.summary()["steps"] % 4 == 1 and gs["replays"] > 0
+    else:
+        for e in range(2):
+            tr.run_epoch(e)
+        before = dict(tr.graph_stats)
+        tr._gated.clear()
+        tr._gated_tails.clear()
+        monkeypatch.setattr(ST, "step_body", reads_back)
+        with pytest.raises(Exception):
+            tr.run_epoch(2)
+        gs = tr.graph_stats
+        assert gs["deferred_epochs"] == 1 and gs["blocking_epochs"] == 2
+        assert gs["replays"] == before["replays"]
+    assert gs["conditional_nodes"] == (0 if path == "blocking" else before["conditional_nodes"])
+    assert gs["gated_replays"] == (0 if path == "blocking" else before["gated_replays"])
     torch.cuda.synchronize()
 
 

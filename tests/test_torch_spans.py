@@ -5,11 +5,12 @@
   Trainer (chunk 4, ``sample_every`` 6, ``drop_last=False``: 79 images at
   batch 8 make ten steps an epoch with a 7-lane tail) records its spans,
   nested as the loop nests them, and as many ``step.eager`` spans as its
-  epochs count eager steps, ``step.chunk`` spans as its other steps make
+  epochs count eager steps, ``step.remainder`` spans as it launches gated
+  remainders and tails, ``step.chunk`` spans as its other steps make
   chunks, and ``epoch.grid`` spans as it counts grid reads.
-* The eager steps by reason follow the segment arithmetic, worked by hand
-  below, over two epochs whose global step offsets (0 and 10) fall
-  differently against the sample points.
+* The eager and gated steps by reason follow the segment arithmetic,
+  worked by hand below, over two epochs whose global step offsets (0 and
+  10) fall differently against the sample points.
 * With no profiler recording, ``span`` enters no ``record_function``; once
   a session has ended the gate reads false again.
 * Every read of a device value that the port's own code makes during an
@@ -30,10 +31,12 @@ from torch.overrides import TorchFunctionMode
 
 from strainer_gan_tpu_torch import get_preset
 from strainer_gan_tpu_torch.obs import profiler
+from strainer_gan_tpu_torch.train import steps as ST
 from strainer_gan_tpu_torch.train.loop import Trainer
 
 WIDTH, B = 8, 8
 EAGER = ("eager.warmup", "eager.remainder", "eager.tail", "eager.per_step")
+GATED = ("gated.remainder", "gated.tail")
 SLACK_NS = 1000
 
 
@@ -68,17 +71,30 @@ def _batch_mask(mask_start_epoch=10):
 
 @pytest.fixture(scope="module")
 def traced():
-    """Two ungated epochs under a CPU profiler: the trainer and the
-    program's spans as (name, start, end), in start order."""
+    """Two ungated epochs under a CPU profiler: the trainer, the
+    program's spans as (name, start, end), in start order, and each
+    epoch's launches of a gated executor."""
     tr = _trainer(_batch_mask(), max_synth=72)
     assert tr.dataset.n == 79
-    with tp.profile(activities=[tp.ProfilerActivity.CPU]) as prof:
-        for e in range(2):
-            tr.run_epoch(e)
+    launches = []
+    call = ST.GatedChunkedStep.__call__
+
+    def counted(*a, **kw):
+        launches[-1] += 1
+        return call(*a, **kw)
+
+    ST.GatedChunkedStep.__call__ = counted
+    try:
+        with tp.profile(activities=[tp.ProfilerActivity.CPU]) as prof:
+            for e in range(2):
+                launches.append(0)
+                tr.run_epoch(e)
+    finally:
+        ST.GatedChunkedStep.__call__ = call
     spans = sorted(((e.name[len(profiler.SPAN_PREFIX):], e.time_range.start, e.time_range.end)
                     for e in prof.events() if e.name.startswith(profiler.SPAN_PREFIX)),
                    key=lambda s: (s[1], -s[2]))
-    return tr, spans
+    return tr, spans, launches
 
 
 def _parents(spans):
@@ -93,7 +109,7 @@ def _parents(spans):
 
 
 def test_spans_nest_as_the_loop_does(traced):
-    tr, spans = traced
+    tr, spans, _ = traced
     parents = dict(Counter(zip((s[0] for s in spans), _parents(spans))))
     assert parents == {
         ("epoch", None): 2,
@@ -101,10 +117,14 @@ def test_spans_nest_as_the_loop_does(traced):
         ("epoch.strain", "epoch"): 2, ("epoch.stats", "epoch"): 1,
         ("host_read.stats", "epoch.stats"): 1,
         ("host_read.mask", "epoch"): 2,
-        ("step.eager", "epoch"): 12, ("step.chunk", "epoch"): 2,
+        ("step.eager", "epoch"): 2, ("step.chunk", "epoch"): 2,
+        ("step.remainder", "epoch"): 6,
         # log_every 3: steps 0, 3, 6, 9 of each epoch print, one fetch for
-        # the prints of a chunk (epoch 0: 3 in a chunk; epoch 1: 3 and 6)
-        ("host_read.log", "step.eager"): 5, ("host_read.log", "step.chunk"): 2,
+        # the prints of a chunk or a gated launch (epoch 0: 0 eager, 3 in a
+        # chunk, 6 and 9 gated; epoch 1: 0 gated, 3 and 6 in a chunk, 9
+        # gated)
+        ("host_read.log", "step.eager"): 1, ("host_read.log", "step.chunk"): 2,
+        ("host_read.log", "step.remainder"): 4,
         ("epoch.grid", "epoch"): 4, ("host_read.grid", "epoch.grid"): 5,
         ("epoch.close", "epoch"): 2, ("epoch.grid", "epoch.close"): 1,
         ("host_read.history", "epoch.close"): 2,
@@ -112,14 +132,16 @@ def test_spans_nest_as_the_loop_does(traced):
 
 
 def test_step_spans_equal_the_epoch_counts(traced):
-    tr, spans = traced
+    tr, spans, launches = traced
     epochs = [s for s in spans if s[0] == "epoch"]
-    for (_, lo, hi), result in zip(epochs, tr.epoch_results):
+    for (_, lo, hi), result, n_gated in zip(epochs, tr.epoch_results, launches):
         inside = Counter(s[0] for s in spans if lo < s[1] and s[2] <= hi)
         c = result["counts"]
         eager = sum(c.get(k, 0) for k in EAGER)
         assert inside["step.eager"] == eager
-        assert inside["step.chunk"] * 4 == result["steps"] - eager
+        assert inside["step.chunk"] * 4 + sum(c.get(k, 0) for k in GATED) \
+            == result["steps"] - eager
+        assert inside["step.remainder"] == n_gated > 0
         assert inside["epoch.grid"] == c["host_read.grid"]
         assert sum(v for k, v in inside.items() if k.startswith("host_read.")) == sum(
             v for k, v in c.items() if k.startswith("host_read."))
@@ -128,17 +150,19 @@ def test_step_spans_equal_the_epoch_counts(traced):
 def test_eager_counts_follow_the_segments(traced):
     """Ten steps, the last a 7-lane tail, sample points every 6 global
     steps, chunks of 4.  Epoch 0 (global steps 0-9): segments [0, 1)
-    (step 0 eager), [1, 7) (the key's warm-up step 1, a chunk 2-5, step 6
-    eager) and [7, 10) (steps 7-8 eager, the tail 9); grids after global
-    steps 0 and 6.  Epoch 1 (global 10-19): [0, 3) (three eager: a segment
-    short of a chunk), [3, 9) (a chunk 3-6, steps 7-8 eager) and the tail;
-    grids after global 12 and 18, and one after the last epoch."""
-    tr, _ = traced
+    (step 0 eager: the key has had no warm-up yet), [1, 7) (the key's
+    warm-up step 1, a chunk 2-5, step 6 gated) and [7, 10) (steps 7-8
+    gated, the tail 9 gated); grids after global steps 0 and 6.  Epoch 1
+    (global 10-19): [0, 3) (three gated: a segment short of a chunk), [3, 9)
+    (a chunk 3-6, steps 7-8 gated) and the gated tail; grids after global
+    12 and 18, and one after the last epoch."""
+    tr, _, launches = traced
     first, second = (r["counts"] for r in tr.epoch_results)
-    pick = EAGER + ("host_read.grid",)
-    assert {k: first.get(k, 0) for k in pick} == dict(zip(pick, (1, 4, 1, 0, 2)))
-    assert {k: second.get(k, 0) for k in pick} == dict(zip(pick, (0, 5, 1, 0, 3)))
+    pick = EAGER + GATED + ("host_read.grid",)
+    assert {k: first.get(k, 0) for k in pick} == dict(zip(pick, (1, 1, 0, 0, 3, 1, 2)))
+    assert {k: second.get(k, 0) for k in pick} == dict(zip(pick, (0, 0, 0, 0, 5, 1, 3)))
     assert [r["steps"] for r in tr.epoch_results] == [10, 10]
+    assert launches == [3, 3]
 
 
 def test_per_step_counts_every_step_as_per_step():
@@ -160,7 +184,7 @@ def test_no_span_without_a_profiler(monkeypatch):
     cfg = _batch_mask().replace(train=dataclasses.replace(_batch_mask().train, epochs=1))
     tr = _trainer(cfg, max_synth=72)
     c = tr.run_epoch(0)["counts"]
-    assert (c["eager.warmup"], c["eager.remainder"], c["eager.tail"]) == (1, 4, 1)
+    assert tuple(c.get(k, 0) for k in EAGER[:3] + GATED) == (1, 1, 0, 3, 1)
 
 
 def test_gate_reads_false_after_a_session(tmp_path):
