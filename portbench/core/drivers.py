@@ -1,12 +1,16 @@
 """The one general driver of every traffic mix: it reads the cell's
 configuration and traffic files, builds the port's objects from the
-harness's inputs, runs the set-up, then the measured window.
+harness's inputs, runs the set-up, then the measured window.  Whatever
+depends on the model's architecture (its weights, their load, the
+training state's snapshot and restart, the console style, the recorded
+metrics) comes from the plug-in the configuration's ``model.arch`` names,
+``archs/<arch>.py`` (``spec.arch_module``).
 
 A traffic file's ``kind`` names the entry the window drives:
 
 * ``epoch``: ``Trainer.run_epoch(<epoch>)`` repeated, every epoch from
-  the state the checked epoch started from (``Run._restart``), so that
-  every unit does the same work.  Set-up runs the preset's
+  the state the checked epoch started from (the plug-in's ``restart``),
+  so that every unit does the same work.  Set-up runs the preset's
   ``Trainer.setup()`` (its prefilter, if it has one) and one epoch of the
   same index: the window's own call, which warms every
   capture key, the eager steps and the strain's shapes, pays the process's
@@ -31,11 +35,12 @@ import dataclasses
 import os
 import tempfile
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
 from . import inputs as I
+from . import spec
 from .trace import Trace, Tracer, span
 
 
@@ -71,9 +76,11 @@ class Recorder:
     of the stages it compares (``wanted``).  A stage is one dispatch: an
     eager step (``log_step``) or a replayed chunk (``log_chunk``); the
     state is cloned on the stream right after the dispatch, so it is the
-    state the next dispatch starts from."""
+    state the next dispatch starts from.  ``style``: the console's;
+    ``recorded``: the keys of a step's metrics that are kept."""
 
-    def __init__(self, logger_cls, log_every: int, stream, snapshot: Callable):
+    def __init__(self, logger_cls, log_every: int, stream, snapshot: Callable, style: str,
+                 recorded: Sequence[str]):
         outer = self
 
         class _Logger(logger_cls):
@@ -86,8 +93,9 @@ class Recorder:
                 super().log_chunk(epoch, num_epochs, it0, steps, metrics, n)
                 outer._record(it0, n, steps, metrics, stacked=True)
 
-        self.logger = _Logger(log_every=log_every, stream=stream, style="dcgan")
+        self.logger = _Logger(log_every=log_every, stream=stream, style=style)
         self._snapshot = snapshot
+        self._recorded = tuple(recorded)
         self.armed = False
         self.on_eager_done: Optional[Callable] = None  # the traced run's span end
         self.steps: Dict[int, Dict] = {}
@@ -125,8 +133,7 @@ class Recorder:
             return
         self.n_steps = steps
         for j in range(n):
-            row = {k: (m[k][j] if stacked else m[k]) for k in
-                   ("errD", "errG", "keep_mask", "real_loss_per_sample")}
+            row = {k: (m[k][j] if stacked else m[k]) for k in self._recorded}
             self.steps[it0 + j] = row
         end = self._snapshot()
         kind = "chunk" if stacked else "eager"
@@ -136,33 +143,6 @@ class Recorder:
             self.stages.append({**stage, "role": role})
         self.last = {**stage, "role": "last"}
         self._start = end
-
-
-def snapshot_state(trainer) -> Dict:
-    """A clone of G's and D's parameters and buffers and of both Adam
-    states, by parameter name."""
-
-    def adam(opt, module):
-        out = {}
-        for name, p in module.named_parameters():
-            st = opt.state.get(p)
-            if st:
-                out[name] = {"m": st["exp_avg"].detach().clone(),
-                             "v": st["exp_avg_sq"].detach().clone(),
-                             "t": torch.as_tensor(st["step"]).detach().clone()}
-        return out
-
-    with torch.no_grad():
-        return {"g": {k: v.detach().clone() for k, v in trainer.gen.state_dict().items()},
-                "d": {k: v.detach().clone() for k, v in trainer.disc.state_dict().items()},
-                "opt_g": adam(trainer.opt_g, trainer.gen),
-                "opt_d": adam(trainer.opt_d, trainer.disc)}
-
-
-def _load(module, weights: Dict) -> None:
-    with torch.no_grad():
-        for k, t in module.state_dict().items():
-            t.copy_(weights[k])
 
 
 class Run:
@@ -181,6 +161,7 @@ class Run:
                 s["count"] = max(1, s["count"] * scale["n_images"] // total)
             data["batch_size"] = scale.get("batch_size", data["batch_size"])
         self.kind = self.traffic["kind"]
+        self.arch = spec.arch_module(self.config["model"]["arch"])
         self.console_path = os.path.join(tempfile.gettempdir(), "portbench_console.txt")
         self.trace: Optional[Trace] = None
         self.traced: Dict = {}
@@ -194,32 +175,31 @@ class Run:
         from strainer_gan_tpu_torch.obs.metrics import MetricsLogger
         from strainer_gan_tpu_torch.train.loop import Trainer
 
-        from ..reference import dcgan as RD
-        from ..reference.resnet import normalize
-
-        cfg_file, dev = self.config, self.device
+        cfg_file, dev, arch = self.config, self.device, self.arch
         data = cfg_file["data"]
         self.images, self.source_id = I.make_images(
             data["sources"], data["mixer"], cfg_file["model"]["image_size"],
             data["content_seed"], self.seed, dev)
         self.n = self.images.shape[0]
-        g_w, d_w = I.dcgan_weights(cfg_file["model"], self.seed, dev)
+        g_w, d_w = arch.weights(cfg_file["model"], self.seed, dev)
         d_state = self.traffic.get("d_state")
         if d_state:
-            sample = normalize(self.images[:int(d_state["rows"])])
-            d_w = RD.d_as_trained(d_w, sample, d_state["logit_mean"], d_state["logit_std"])
+            if not hasattr(arch, "as_trained"):
+                raise ValueError(f"the traffic mix has a d_state, and the architecture "
+                                 f"{cfg_file['model']['arch']!r} has no as_trained")
+            d_w = arch.as_trained(d_w, self.images, d_state)
         self.trunk = None
         if cfg_file.get("strain", {}).get("feature_extractor") == "resnet18":
             self.trunk = I.resnet18_weights(cfg_file["strain"]["trunk_seed"], dev)
         self.cfg = program_config(cfg_file, self.seed)
         self.console = open(self.console_path, "w")
         self.recorder = Recorder(MetricsLogger, self.cfg.train.log_every, self.console,
-                                 lambda: snapshot_state(self.trainer))
+                                 lambda: arch.snapshot(self.trainer), arch.STYLE,
+                                 arch.RECORDED)
         self.dataset = DeviceDataset.from_tensors(self.images, self.source_id, dev)
         self.trainer = tr = Trainer(self.cfg, device=dev, dataset=self.dataset,
                                     logger=self.recorder.logger)
-        _load(tr.gen, g_w)
-        _load(tr.disc, d_w)
+        arch.load(tr, g_w, d_w)
         if self.trunk is not None:
             tr.engine.feature_fn = build_feature_fn(
                 "resnet18", 3, dev, state_dict={k: v.cpu() for k, v in self.trunk.items()})
@@ -286,9 +266,10 @@ class Run:
             epoch = int(self.traffic["epoch"])
 
             def unit():
-                self._restart()
+                self.arch.restart(self.trainer, self.checked["initial"])
                 r = self.trainer.run_epoch(epoch)
-                return dict(images=int(r["active"]), steps=int(r["steps"]))
+                return dict(images=int(r["active"]), steps=int(r["steps"]),
+                            counts=r.get("counts"))
             return unit
 
         def unit():
@@ -298,27 +279,10 @@ class Run:
             return dict(images=self.n, steps=0)
         return unit
 
-    def _restart(self) -> None:
-        """Put G and D back to the state the checked epoch started from, and
-        both Adam states to nought (moments and step counts: the next step
-        is a first step, as on a fresh optimizer), in place: every captured
-        graph still reads the same tensors."""
-        tr, start = self.trainer, self.checked["initial"]
-        with torch.no_grad():
-            for module, weights in ((tr.gen, start["g"]), (tr.disc, start["d"])):
-                _load(module, weights)
-            for opt in (tr.opt_g, tr.opt_d):
-                for st in opt.state.values():
-                    for k in ("exp_avg", "exp_avg_sq", "step"):
-                        if torch.is_tensor(st.get(k)):
-                            st[k].zero_()
-
     def run_window(self, seconds: float, traced: bool = False) -> None:
         from strainer_gan_tpu_torch.kernels import launch_counts
 
         unit = self._unit()
-        tr = self.trainer
-        stats0 = dict(tr.graph_stats)
         launches0 = launch_counts()
         units: List[Dict] = []
         t_start = t_window = time.perf_counter()
@@ -346,11 +310,7 @@ class Run:
                 break
         if traced:
             self.trace = Trace(events)
-        self.window = dict(
-            seconds=t1 - t_start, units=units,
-            replays=tr.graph_stats["replays"] - stats0["replays"],
-            captures=tr.graph_stats["captures"] - stats0["captures"],
-            chunk=max(1, int(tr.cfg.train.steps_per_dispatch)))
+        self.window = dict(seconds=t1 - t_start, units=units)
 
     def _traced_engine(self) -> Dict:
         """What the traced unit's strain did: the scored base's rows and the

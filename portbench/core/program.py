@@ -63,11 +63,6 @@ def spans(trace, name: str) -> list:
     return [e for e in program_spans(trace) if e.name == PREFIX + name]
 
 
-def durations_s(trace, name: str) -> List[float]:
-    """Wall seconds of each span ``name``."""
-    return [(e.end - e.start) / 1e9 for e in spans(trace, name)]
-
-
 class Busy:
     """The busy device time between two instants, from the trace's merged
     busy intervals."""

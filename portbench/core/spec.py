@@ -8,6 +8,9 @@ metric is a new file and a new entry, never an edit.
 * ``judges/<judge>.py``: what decides ``correct``, named by the traffic
   file's ``judge`` (``core/checks.py``).
 * ``limits/<workload name>.json``: the limits of the cell's comparisons.
+* ``archs/<model.arch>.py``: what the harness does that depends on the
+  model's architecture (its weights, state and FLOPs), named by the
+  configuration file's ``model.arch`` (``core/drivers.py``).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from typing import Callable, Dict, List, Optional
 
 BENCH_DIR = Path(__file__).resolve().parent.parent
 ROOT = BENCH_DIR.parent
+ARCHS = BENCH_DIR / "archs"  # the architectures' plug-ins
 
 
 def load_json(path: Path) -> Dict:
@@ -71,13 +75,13 @@ def load_cell(workload: str, bench_file: Path = ROOT / "BENCHMARK.json") -> Cell
                 limits=limits, end_to_end=e2e, per_layer=layer)
 
 
-def _module(folder: str, name: str, what: str):
+def _module(folder: Path, name: str, what: str):
     """``<folder>/<name>.py``, loaded by its path (a name may hold dots)."""
-    path = BENCH_DIR / folder / f"{name}.py"
+    path = folder / f"{name}.py"
     if not path.exists():
         raise FileNotFoundError(f"{what} {name!r} has no file at {path}")
     spec = importlib.util.spec_from_file_location(
-        f"portbench_{folder}_{name.replace('.', '_')}", path)
+        f"portbench_{folder.name}_{name.replace('.', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -85,10 +89,19 @@ def _module(folder: str, name: str, what: str):
 
 def metric_reader(name: str) -> Callable:
     """``read(run)`` of ``metrics/<name>.py``."""
-    return _module("metrics", name, "metric").read
+    return _module(BENCH_DIR / "metrics", name, "metric").read
 
 
 def judge_module(name: str):
     """The judge ``judges/<name>.py``: ``outputs``, ``reference``, ``judge``,
     ``control``, ``fault`` and ``FAULTS``."""
-    return _module("judges", name, "judge")
+    return _module(BENCH_DIR / "judges", name, "judge")
+
+
+def arch_module(name: str):
+    """The plug-in ``archs/<name>.py`` of the architecture a configuration
+    file names (``model.arch``): ``weights``, ``as_trained``, ``load``,
+    ``snapshot``, ``restart``, ``step_flops``, ``d_forward_flops``,
+    ``STYLE`` and ``RECORDED`` (``archs/dcgan64.py`` says what each
+    does)."""
+    return _module(ARCHS, name, "architecture")

@@ -5,7 +5,6 @@ from __future__ import annotations
 import statistics
 from typing import Optional
 
-from . import flops as FL
 from .peaks import peaks_for
 
 
@@ -29,14 +28,15 @@ def k1_elements(engine: dict) -> Optional[int]:
 
 def train_unit_flops(run) -> float:
     """Model FLOPs of the traced epoch: its steps at the full batch, and
-    the strain's D forwards over the base (and the re-scored band)."""
+    the strain's D forwards over the base (and the re-scored band), by
+    the architecture's plug-in (``run.arch``)."""
     model = run.config["model"]
     steps = run.traced["steps"]
     bs = run.config["data"]["batch_size"]
-    total = steps * bs * FL.dcgan_step_flops(model, masked_steps(run))
+    total = steps * bs * run.arch.step_flops(model, masked_steps(run))
     k1 = k1_elements(run.traced.get("engine", {}))
     if k1:
-        total += k1 * FL.dcgan_d_forward_flops(model)
+        total += k1 * run.arch.d_forward_flops(model)
     return float(total)
 
 

@@ -15,8 +15,11 @@ on with):
   is an eager step too (the first chunk's warm-up step);
 * ``first_chunk``: the first replayed chunk (32 steps of one CUDA graph),
   which the reference follows whole;
-* ``after_chunk``: the first eager step after a chunk (a segment's
-  remainder);
+* ``after_chunk``: the first single-step dispatch after a chunk: the
+  gated tail (the partial last step, one launch of the key's gated tail),
+  since a segment's remainder runs as one launch of the key's gated chunk
+  and is recorded as a chunk stage without a role; an eager step, where
+  the epoch still runs one there;
 * ``last``: the epoch's last step (the partial tail batch).
 
 The stages' starting states are the program's; the start of the epoch is

@@ -1,12 +1,17 @@
-"""Steps run as CUDA graph replays over all steps the window ran, in %
-(the program's ``graph_stats["replays"]`` times the chunk, over the
-epochs' ``steps``)."""
+"""Steps run inside a CUDA graph launch, plain or gated, over all steps the
+window ran, in %: each epoch's ``steps`` less its eager counts (the
+program's ``eager.*`` counters of that epoch), summed over the window's
+epochs.  A window that runs no eager step reads 100.0; it never passes
+100.  None for a program that keeps no counts."""
+from portbench.core.program import EAGER
 
 
 def read(run):
     if run.kind != "epoch":
         return None
-    steps = sum(u["steps"] for u in run.window["units"])
-    if not steps:
+    units = run.window["units"]
+    steps = sum(u["steps"] for u in units)
+    if not steps or any(u.get("counts") is None for u in units):
         return None
-    return 100.0 * run.window["replays"] * run.window["chunk"] / steps
+    eager = sum(v for u in units for k, v in u["counts"].items() if k in EAGER)
+    return 100.0 * (steps - eager) / steps

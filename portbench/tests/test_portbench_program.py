@@ -9,8 +9,7 @@ from portbench.core import spec
 from portbench.core.trace import Event, Trace
 from strainer_gan_tpu_torch.obs import profiler
 
-NEW = ("eager_steps.train", "eager_ms.train", "chunk_gap_ms.train", "host_reads.train",
-       "strain_wait_ms.final")
+NEW = ("eager_steps.train", "chunk_gap_ms.train", "host_reads.train", "strain_wait_ms.final")
 
 
 def _host(name, start, end, corr=0):
@@ -92,8 +91,6 @@ def _read(name, run):
 
 def test_span_readers_by_hand(logged):
     run = _run(Trace(_with_program()))
-    # one eager step of 30 ns
-    assert _read("eager_ms.train", run) == pytest.approx(30e-6)
     # the chunk 460-950: busy 500-900, idle 90 ns
     assert _read("chunk_gap_ms.train", run) == pytest.approx(90e-6)
     # the strain event 60-450: busy 100-200 and 300-400, idle 190 ns
@@ -113,6 +110,23 @@ def test_counter_readers_by_hand(units):
     assert _read("host_reads.train", run) == 9
 
 
+@pytest.mark.parametrize("eager", [0, 3])
+def test_replayed_share_by_hand(eager):
+    # two epochs of 318 steps, 29 of them in gated remainders and one gated
+    # tail: the gated steps are inside a launch; ``eager`` eager steps in
+    # the first epoch are not
+    counts = {"gated.remainder": 29, "gated.tail": 1, "host_read.log": 7}
+    units = [{"steps": 318, "counts": dict(counts, **{"eager.remainder": eager})},
+             {"steps": 318, "counts": dict(counts)}]
+    run = types.SimpleNamespace(kind="epoch", window={"units": units})
+    assert _read("replayed_share.train", run) == pytest.approx(100.0 * (636 - eager) / 636)
+    # a program that keeps no counts gives nothing to read
+    units[1] = {"steps": 318, "counts": None}
+    assert _read("replayed_share.train", run) is None
+    run = types.SimpleNamespace(kind="prefilter", window={"units": units})
+    assert _read("replayed_share.train", run) is None
+
+
 def test_nothing_to_read_gives_none(monkeypatch):
     # the parent program: no span log, no counts in its results
     monkeypatch.delattr(profiler, "recorded_spans")
@@ -127,7 +141,7 @@ def test_nothing_to_read_gives_none(monkeypatch):
     monkeypatch.setattr(profiler, "recorded_spans",
                         lambda: [(n, lo + 5000, hi + 5000) for n, lo, hi in PROGRAM])
     run = _run(Trace(_with_program()))
-    for name in ("eager_ms.train", "chunk_gap_ms.train", "strain_wait_ms.final"):
+    for name in ("chunk_gap_ms.train", "strain_wait_ms.final"):
         assert _read(name, run) is None, name
 
 
